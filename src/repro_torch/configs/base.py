@@ -1,0 +1,159 @@
+"""Model configuration for the PyTorch port.
+
+A copy of the reference package's ``ModelConfig`` (field for field, so a
+reference config converts with ``ModelConfig(**dataclasses.asdict(cfg))``)
+with the derived properties the dense serving path reads. Run-time shapes
+and the mesh layer are not part of this slice.
+"""
+from __future__ import annotations
+
+import importlib
+import math
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    n_experts: int = 0
+    top_k: int = 2
+    d_expert: int = 0           # per-expert hidden dim (d_ff of one expert)
+    dense_residual: bool = False  # arctic-style parallel dense FFN
+    d_dense_residual: int = 0     # hidden dim of the dense residual branch
+    every: int = 1               # MoE on layers where (layer % every == offset)
+    offset: int = 0
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+    @property
+    def enabled(self) -> bool:
+        return self.n_experts > 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective-scan block configuration."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block configuration (sLSTM + mLSTM interleave)."""
+
+    slstm_every: int = 2      # sLSTM on layers where layer % every == offset
+    slstm_offset: int = 0
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.3333
+
+
+_SUB_CONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "xlstm": XLSTMConfig}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"  # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0          # 0 -> d_model // n_heads
+    d_ff: int = 1024           # dense FFN hidden (0 for pure-SSM archs)
+    vocab_size: int = 1024
+    act: str = "swiglu"        # swiglu | geglu | gelu
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0  # chatglm-style partial/2d rope: 0.5
+    tie_embeddings: bool = False
+    max_seq_len: int = 8192
+    attn_logit_softcap: float = 0.0
+    sliding_window: int = 0     # 0 = full attention
+    # hybrid (jamba): attention on layers where layer % attn_every == attn_offset
+    attn_every: int = 1
+    attn_offset: int = 0
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    xlstm: XLSTMConfig = field(default_factory=XLSTMConfig)
+    # modality frontend stub: precomputed embeddings of this dim replace the
+    # first tokens
+    frontend: str = "none"      # none | vision | audio
+    frontend_dim: int = 0
+    dtype: str = "bfloat16"
+    # layers are grouped into n_layers // scan_period groups of `scan_period`
+    # (possibly heterogeneous) layers. 0 -> auto from family.
+    scan_period: int = 0
+    remat: str = "block"        # training only; inference ignores it
+
+    def __post_init__(self):
+        # dataclasses.asdict() flattens the sub-configs to dicts; accept them
+        for name, cls in _SUB_CONFIGS.items():
+            value = getattr(self, name)
+            if isinstance(value, dict):
+                object.__setattr__(self, name, cls(**value))
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def resolved_scan_period(self) -> int:
+        if self.scan_period:
+            return self.scan_period
+        period = 1
+        if self.family == "hybrid":
+            period = math.lcm(period, self.attn_every)
+        if self.moe.enabled and self.moe.every > 1:
+            period = math.lcm(period, self.moe.every)
+        if self.family == "ssm":
+            period = math.lcm(period, self.xlstm.slstm_every)
+        return period
+
+    @property
+    def n_groups(self) -> int:
+        p = self.resolved_scan_period
+        if self.n_layers % p:
+            raise ValueError(f"n_layers={self.n_layers} is not a multiple "
+                             f"of the scan period {p}")
+        return self.n_layers // p
+
+    def layer_kind(self, layer_idx: int) -> str:
+        """Kind of layer at absolute index: attn | ssm | slstm | mlstm."""
+        if self.family == "ssm":
+            x = self.xlstm
+            return "slstm" if layer_idx % x.slstm_every == x.slstm_offset else "mlstm"
+        if self.family == "hybrid":
+            if layer_idx % self.attn_every == self.attn_offset:
+                return "attn"
+            return "ssm"
+        return "attn"
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        m = self.moe
+        return m.enabled and (layer_idx % m.every == m.offset)
+
+
+def _module(arch: str):
+    arch = arch.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    """The published (full-size) config of an architecture id."""
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """The reduced same-family smoke config of an architecture id."""
+    return _module(arch).SMOKE_CONFIG

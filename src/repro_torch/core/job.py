@@ -1,0 +1,45 @@
+"""Jobs and tasks: the part of the scheduler's data model that serving uses.
+
+A trimmed copy of the reference scheduler's ``Job``/``Task``: a request is a
+job array of one task, and the task is what holds a decode lane.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+_job_ids = itertools.count(1)
+
+
+@dataclass
+class ResourceRequest:
+    """Per-task resource request: job slots on one node."""
+
+    slots: int = 1
+
+
+@dataclass
+class Task:
+    job_id: int
+    index: int
+    request: ResourceRequest = field(default_factory=ResourceRequest)
+    node_id: Optional[int] = None
+
+    @property
+    def key(self) -> Tuple[int, int]:
+        return (self.job_id, self.index)
+
+
+@dataclass
+class Job:
+    name: str = "job"
+    job_id: int = field(default_factory=lambda: next(_job_ids))
+    tasks: List[Task] = field(default_factory=list)
+
+    @classmethod
+    def array(cls, n_tasks: int, *, name: str = "job") -> "Job":
+        """A job array of ``n_tasks`` independent one-slot tasks."""
+        job = cls(name=name)
+        job.tasks = [Task(job.job_id, i) for i in range(n_tasks)]
+        return job

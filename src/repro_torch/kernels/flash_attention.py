@@ -1,0 +1,165 @@
+"""Flash attention forward: the hand-written Hopper kernel and its plain version.
+
+``flash_attention_ref`` is the plain PyTorch version (full materialisation,
+float32 math): the CPU path and the yardstick the kernel is held against.
+``FlashAttentionKernel`` builds ``csrc/flash_attention.cu`` for ``sm_90a``
+with ``nvcc`` into a shared library with a plain C interface at first use
+(into ``build/kernels/`` at the checkout's root), loads it with ``ctypes``
+and launches it on PyTorch's current stream. ``flash_kernel.launches``
+counts the launches.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+NEG_INF = -2.3819763e38
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype.
+
+    Causal (query i sees keys j <= i), optionally sliding-window (also
+    j > i - window) and softcapped; GQA: kv head = q head // (Hq/Hkv).
+    """
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd).float()
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * hd ** -0.5
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build_library(source: Path, name: str) -> Path:
+    """Compile ``source`` for sm_90a into ``BUILD_DIR/<name>.so``.
+
+    Skips the build when the library is newer than its source. The library
+    is written under a temporary name and renamed, so a concurrent reader
+    never sees a half-written file.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}.so"
+    if out.exists() and out.stat().st_mtime >= source.stat().st_mtime:
+        return out
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+class FlashAttentionKernel:
+    """ctypes binding of the CUDA kernel; ``launches`` counts its launches."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def build(self):
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(build_library(SOURCE, "flash_attention")))
+                fn = lib.flash_attention_fwd
+                fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                               + [ctypes.c_longlong] * 12
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_float, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                self._lib = lib
+        return self._lib
+
+    def __call__(self, q, k, v, causal: bool = True, window: int = 0,
+                 softcap: float = 0.0):
+        """Launch on CUDA tensors q [B,S,Hq,hd], k/v [B,T,Hkv,hd]."""
+        _check(q, k, v)
+        lib = self.build()
+        B, S, Hq, hd = q.shape
+        T, Hkv = k.shape[1], k.shape[2]
+        out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
+        if out.numel() == 0:
+            return out
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, S, T, Hq, Hkv, hd, *strides,
+            hd ** -0.5, int(causal), int(window), float(softcap), stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+        return out
+
+
+def _check(q, k, v):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("the flash-attention kernel takes CUDA tensors only")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v lie on different devices")
+    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel "
+                         "takes float32 or bfloat16, the same for q, k and v")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}: want [B,S,Hq,hd] and [B,T,Hkv,hd]")
+    B, S, Hq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if Hq % k.shape[2]:
+        raise ValueError(f"{Hq} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a unit stride on head_dim")
+        # the bf16 body moves 16-byte vectors
+        if q.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            raise ValueError(f"bf16 {name} needs a 16-byte aligned start and "
+                             f"strides in multiples of 8, got {t.stride()}")
+
+
+flash_kernel = FlashAttentionKernel()

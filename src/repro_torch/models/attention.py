@@ -1,0 +1,200 @@
+"""GQA/MQA/MHA attention with KV cache, causal/sliding-window masking.
+
+Prefill uses plain PyTorch attention (``full_attention``, or
+``chunked_attention`` above ``FULL_ATTN_MAX``) or, with ``use_kernel``, the
+flash-attention kernel through ``kernels.ops`` (on CUDA tensors the
+hand-written kernel, on CPU tensors its plain version). Decode attends one
+query per lane against the whole cache in plain PyTorch, as the reference.
+
+Unlike the reference, cache writes are in place: ``attn_apply`` writes the
+new keys and values into the cache tensors it is given.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import NEG_INF, _normal, apply_rope
+
+CHUNK_Q = 1024
+CHUNK_K = 1024
+FULL_ATTN_MAX = 1024  # above this, use the chunked (flash-style) path
+
+
+def attn_init(gen, cfg: ModelConfig, dtype, lead=()):
+    lead = tuple(lead)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    s = d ** -0.5
+    return {
+        "wq": _normal(lead + (d, cfg.n_heads, hd), s, dtype, gen),
+        "wk": _normal(lead + (d, cfg.n_kv_heads, hd), s, dtype, gen),
+        "wv": _normal(lead + (d, cfg.n_kv_heads, hd), s, dtype, gen),
+        "wo": _normal(lead + (cfg.n_heads, hd, d),
+                      (cfg.n_heads * hd) ** -0.5, dtype, gen),
+    }
+
+
+def _proj(x, w):
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _out_proj(o, wo):
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    h, k, d = wo.shape
+    return o.reshape(*o.shape[:-2], h * k) @ wo.reshape(h * k, d)
+
+
+def _qkv(params, x, positions, cfg: ModelConfig):
+    q = apply_rope(_proj(x, params["wq"]), positions, cfg)
+    k = apply_rope(_proj(x, params["wk"]), positions, cfg)
+    v = _proj(x, params["wv"])
+    return q, k, v
+
+
+def _softcap(logits, cap: float):
+    if cap > 0.0:
+        logits = torch.tanh(logits / cap) * cap
+    return logits
+
+
+def full_attention(q, k, v, cfg: ModelConfig):
+    """Causal (optionally sliding-window) attention, grouped for GQA.
+
+    q: [B,S,Hq,hd], k/v: [B,T,Hkv,hd]; returns [B,S,Hq,hd]. fp32 softmax.
+    """
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    logits = _softcap(logits * hd ** -0.5, cfg.attn_logit_softcap)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if cfg.sliding_window > 0:
+        mask &= kpos > qpos - cfg.sliding_window
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, Hq, hd)
+
+
+def chunked_attention(q, k, v, cfg: ModelConfig, chunk_q: int = CHUNK_Q,
+                      chunk_k: int = CHUNK_K):
+    """Flash-style causal attention over (q, k) chunks with a running max;
+    never materialises an [S, T] matrix. Computes every block pair and
+    masks, as the reference's scan does.
+    """
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    chunk_q, chunk_k = min(chunk_q, S), min(chunk_k, T)
+    if S % chunk_q or T % chunk_k:
+        raise ValueError(f"S={S}, T={T} not multiples of chunks "
+                         f"{chunk_q}, {chunk_k}")
+    scale = hd ** -0.5
+    outs = []
+    for q0 in range(0, S, chunk_q):
+        qb = q[:, q0:q0 + chunk_q].reshape(B, chunk_q, Hkv, G, hd)
+        qpos = torch.arange(q0, q0 + chunk_q, device=q.device)
+        m = torch.full((B, Hkv, G, chunk_q), float("-inf"), device=q.device)
+        num = torch.zeros((B, Hkv, G, chunk_q, hd), device=q.device)
+        den = torch.zeros((B, Hkv, G, chunk_q), device=q.device)
+        for k0 in range(0, T, chunk_k):
+            kb, vb = k[:, k0:k0 + chunk_k], v[:, k0:k0 + chunk_k]
+            kpos = torch.arange(k0, k0 + chunk_k, device=q.device)
+            logits = torch.einsum("bqkgh,bskh->bkgqs", qb, kb).float()
+            logits = _softcap(logits * scale, cfg.attn_logit_softcap)
+            mask = kpos[None, :] <= qpos[:, None]
+            if cfg.sliding_window > 0:
+                mask &= kpos[None, :] > qpos[:, None] - cfg.sliding_window
+            logits = logits.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            num = num * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p, vb.float())
+            den = den * alpha + p.sum(dim=-1)
+            m = m_new
+        out = num / den.clamp_min(1e-30)[..., None]
+        # [B,Hkv,G,chunk_q,hd] -> [B,chunk_q,Hq,hd]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, chunk_q, Hq, hd)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attn_apply(params, x, positions, cfg: ModelConfig,
+               cache: Optional[Dict] = None, cache_index=None,
+               use_kernel: bool = False):
+    """Returns the attention output. cache=None -> prefill without a cache.
+
+    With a cache: S == 1 is a decode step writing at ``cache_index`` (an int
+    or a [B] tensor of per-lane positions); otherwise prefill writes [0, S).
+    The write goes into ``cache`` in place.
+    """
+    B, S, _ = x.shape
+    q, k, v = _qkv(params, x, positions, cfg)
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+            # per-lane write positions (continuous batching)
+            lanes = torch.arange(B, device=ck.device)
+            ck[lanes, cache_index] = k[:, 0].to(ck.dtype)
+            cv[lanes, cache_index] = v[:, 0].to(cv.dtype)
+        else:
+            i = int(cache_index)
+            ck[:, i:i + S] = k.to(ck.dtype)
+            cv[:, i:i + S] = v.to(cv.dtype)
+        if S == 1:
+            out = decode_attention(q, ck, cv, cache_index, cfg)
+            return _out_proj(out, params["wo"])
+        # prefill attends over the cache, so K and V pass the cache dtype
+        k, v = ck[:, :S], cv[:, :S]
+    if use_kernel and S > 1:
+        from repro_torch.kernels.ops import flash_attention
+
+        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                              softcap=cfg.attn_logit_softcap)
+    elif S > FULL_ATTN_MAX:
+        out = chunked_attention(q, k, v, cfg)
+    else:
+        out = full_attention(q, k, v, cfg)
+    return _out_proj(out, params["wo"])
+
+
+def decode_attention(q, ck, cv, cache_index, cfg: ModelConfig):
+    """Single-token attention vs. the full cache.
+
+    q: [B,1,Hq,hd], ck/cv: [B,L,Hkv,hd]; positions after ``cache_index``
+    (an int or a [B] tensor) are masked.
+    """
+    B, _, Hq, hd = q.shape
+    L, Hkv = ck.shape[1], ck.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    logits = torch.einsum("bkgh,btkh->bkgt", qg, ck).float() * hd ** -0.5
+    logits = _softcap(logits, cfg.attn_logit_softcap)
+    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+        idx = cache_index[:, None, None, None]
+    else:
+        idx = cache_index
+    pos = torch.arange(L, device=q.device)[None, None, None, :]
+    valid = pos <= idx
+    if cfg.sliding_window > 0:
+        valid &= pos > idx - cfg.sliding_window
+    logits = logits.masked_fill(~valid, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("bkgt,btkh->bkgh", probs, cv)
+    return out.reshape(B, 1, Hq, hd)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device="cpu", lead=()):
+    shape = tuple(lead) + (batch, max_len, cfg.n_kv_heads,
+                           cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,81 @@
+"""Top-level model API: init, forward, prefill, decode.
+
+``build_model(cfg)`` returns a ``Model``; parameters are a nested dict of
+tensors in the reference's key layout (``embed/tok_embed``,
+``stack/pos00/mixer/wq``, ...), made here from a seeded ``torch.Generator``
+on the target device or converted from the reference with
+``repro_torch.convert.to_torch``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import dtype_of, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import embed_init, embed_tokens, lm_logits
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
+        """Random parameters from ``seed`` on ``device`` (not the
+        reference's random numbers: convert its weights to compare)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        dt = dtype_of(self.cfg)
+        return {"embed": embed_init(gen, self.cfg, dt),
+                "stack": transformer.stack_init(gen, self.cfg, dt)}
+
+    def init_caches(self, batch: int, max_len: int, device="cuda"):
+        return transformer.init_caches(self.cfg, batch, max_len,
+                                       dtype_of(self.cfg),
+                                       resolve_device(device))
+
+    @torch.no_grad()
+    def forward(self, params, tokens, frontend_embeds=None, caches=None,
+                cache_index=None, use_kernel: bool = False):
+        """Returns (logits [B,S,padded_vocab], caches). Caches are written
+        in place."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens, cfg, frontend_embeds)
+        B, S = tokens.shape
+        if cache_index is not None and S == 1:
+            if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+                positions = cache_index[:, None].to(torch.int32)
+            else:
+                positions = torch.full((B, 1), int(cache_index),
+                                       dtype=torch.int32, device=tokens.device)
+        else:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device)[None]
+        x, caches = transformer.stack_apply(
+            params["stack"], x, positions, cfg, caches=caches,
+            cache_index=cache_index, use_kernel=use_kernel)
+        return lm_logits(params["embed"], x, cfg), caches
+
+    def prefill(self, params, tokens, frontend_embeds=None, max_len=None,
+                use_kernel: bool = False):
+        """Fill fresh caches for [0, S); returns (last_logits, caches)."""
+        B, S = tokens.shape
+        caches = self.init_caches(B, max_len or S, tokens.device)
+        logits, caches = self.forward(params, tokens, frontend_embeds,
+                                      caches=caches, cache_index=0,
+                                      use_kernel=use_kernel)
+        return logits[:, -1], caches
+
+    def decode_step(self, params, token, caches, cache_index):
+        """token: [B,1]; cache_index: an int or a [B] tensor (position to
+        write). Returns (logits [B,padded_vocab], caches)."""
+        logits, caches = self.forward(params, token, caches=caches,
+                                      cache_index=cache_index)
+        return logits[:, -1], caches
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

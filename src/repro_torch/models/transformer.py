@@ -1,0 +1,103 @@
+"""Block stack: layers grouped by position within a repeating period.
+
+The parameter and cache layout is the reference's: ``{posNN: tree}`` with a
+leading ``n_groups`` axis on every leaf, so converted weights and caches
+compare one for one. Where the reference scans over groups, the port loops
+in Python. Only dense attention layers are ported in this slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import ffn_apply, ffn_init, rmsnorm, rmsnorm_init
+
+_NOT_PORTED = {
+    "ssm": "ROADMAP Queue 1 item 8 (Mamba / jamba)",
+    "mlstm": "ROADMAP Queue 1 item 9 (xLSTM)",
+    "slstm": "ROADMAP Queue 1 item 9 (xLSTM)",
+    "moe": "ROADMAP Queue 1 item 7 (MoE)",
+}
+
+
+def _pos_name(p: int) -> str:
+    return f"pos{p:02d}"
+
+
+def _check_ported(cfg: ModelConfig, layer_pos: int) -> str:
+    kind = cfg.layer_kind(layer_pos)
+    if kind != "attn":
+        raise NotImplementedError(
+            f"{kind} layers are not ported yet: {_NOT_PORTED[kind]}")
+    if cfg.layer_is_moe(layer_pos):
+        raise NotImplementedError(
+            f"MoE layers are not ported yet: {_NOT_PORTED['moe']}")
+    return kind
+
+
+def _index(tree, g: int):
+    """Group g of a stacked tree (views, so writes reach the stack)."""
+    return {k: _index(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
+def stack_init(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
+    """Stacked params: {posNN: block params with leading n_groups dim}."""
+    G, dev = cfg.n_groups, gen.device
+    out = {}
+    for p in range(cfg.resolved_scan_period):
+        _check_ported(cfg, p)
+        block = {"mixer_norm": rmsnorm_init(cfg.d_model, (G,), dev),
+                 "mixer": attn.attn_init(gen, cfg, dtype, (G,))}
+        if cfg.d_ff > 0:
+            block["ffn_norm"] = rmsnorm_init(cfg.d_model, (G,), dev)
+            block["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                    dtype, (G,))
+        out[_pos_name(p)] = block
+    out["final_norm"] = rmsnorm_init(cfg.d_model, (), dev)
+    return out
+
+
+def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
+                cache: Optional[Dict] = None, cache_index=None,
+                use_kernel: bool = False):
+    """Apply one block (its cache, if any, is written in place)."""
+    _check_ported(cfg, layer_pos)
+    h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
+    x = x + attn.attn_apply(params["mixer"], h, positions, cfg, cache=cache,
+                            cache_index=cache_index, use_kernel=use_kernel)
+    if "ffn" in params:
+        h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+        x = x + ffn_apply(params["ffn"], h, cfg.act)
+    return x
+
+
+def stack_apply(params, x, positions, cfg: ModelConfig,
+                caches: Optional[Dict] = None, cache_index=None,
+                use_kernel: bool = False):
+    """Run all groups in order. caches: {posNN: stacked cache}, written in
+    place. Returns (x, caches)."""
+    period = cfg.resolved_scan_period
+    for g in range(cfg.n_groups):
+        for p in range(period):
+            name = _pos_name(p)
+            cache = _index(caches[name], g) if caches is not None else None
+            x = block_apply(_index(params[name], g), x, positions, cfg, p,
+                            cache=cache, cache_index=cache_index,
+                            use_kernel=use_kernel)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                device="cpu") -> Dict[str, Any]:
+    """Stacked caches {posNN: {k, v: [n_groups, B, L, Hkv, hd]}}."""
+    out = {}
+    for p in range(cfg.resolved_scan_period):
+        _check_ported(cfg, p)
+        out[_pos_name(p)] = attn.init_cache(cfg, batch, max_len, dtype,
+                                            device, lead=(cfg.n_groups,))
+    return out
