@@ -104,7 +104,7 @@ def phase_build(flash_kernel):
 
     t0 = time.time()
     flash_kernel.build()
-    ptxas = (BUILD_DIR / "flash_attention.ptxas.txt")
+    ptxas = BUILD_DIR / "flash_attention.ptxas.txt"
     lines = [ln.strip() for ln in ptxas.read_text().splitlines()
              if "registers" in ln or "spill" in ln] if ptxas.exists() else []
     emit({"phase": "build", "kernel": "flash_attention",
@@ -150,8 +150,7 @@ def phase_kernel_check(flash_kernel, flash_attention_ref, seed: int):
             rec = {"phase": "kernel_check", "case": label,
                    "dtype": str(dtype).split(".")[1], "B": B, "S": S,
                    "Hq": Hq, "Hkv": Hkv, "hd": hd, "causal": causal,
-                   "window": window,
-                   "softcap": softcap, "max_abs_err": err,
+                   "window": window, "softcap": softcap, "max_abs_err": err,
                    "tol": TOL[dtype], "ok": ok}
             if label.startswith("phi4"):
                 rec["kernel_ms"] = cuda_ms(lambda: flash_kernel(q, k, v, **kw))
