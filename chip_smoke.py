@@ -5,16 +5,24 @@
 
 Phases, each printing one JSON line (and failing the run on any error):
   1. environment: torch/CUDA versions, card name and power limit;
-  2. build the flash-attention kernel from src/repro_torch/kernels/csrc;
-  3. hold the kernel against its plain PyTorch version on the card over
-     head dims 16..256, MHA/GQA/MQA, ragged S, window and softcap, and
-     time it at Phi-4-mini's prefill shapes beside its plain version,
-     torch's scaled_dot_product_attention and the card's bound;
-  4. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
-     the continuous-batching engine and check that every prefill went
-     through the kernel;
-  5. token check: at full width and 2 layers in float32, the engine's
-     tokens equal single-stream greedy decoding.
+  2. build the kernels from src/repro_torch/kernels/csrc, one nvcc each,
+     all started together: flash attention (K1) and the sLSTM scan (K4);
+  3. hold K1 against its plain PyTorch version on the card over head dims
+     16..256, MHA/GQA/MQA, ragged S, window and softcap, and time it at
+     Phi-4-mini's prefill shapes beside its plain version, torch's
+     scaled_dot_product_attention and the card's bound;
+  4. hold K4 against its plain version over the reference test's shapes,
+     ragged S, float32 and bf16 preactivations, m0 = -1e30 and -inf, a
+     nonzero initial state and xLSTM 1.3B's full width, and time it there;
+  5. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
+     the continuous-batching engine, check that every prefill went through
+     K1, and break a prefill and a decode step down;
+  6. token check: Phi-4-mini at full width and 2 layers in float32, the
+     engine's tokens equal single-stream greedy decoding;
+  7. the same serving run and breakdown for full-width xLSTM 1.3B (every
+     sLSTM prefill through K4);
+  8. the xLSTM token check (one mLSTM and one sLSTM layer at full width,
+     float32; the single stream runs K4's plain version).
 Then a line with the kernel table, and last the device line. Exits
 nonzero without a CUDA device or without the repo's sources beside it.
 """
@@ -23,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -38,12 +47,15 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # allclose tolerances (atol = rtol). bf16 at 2e-2, the reference kernel
-# tests' tolerance: the kernel rounds P to bf16 for the tensor cores and
-# both round the output to bf16, so they differ by about one bf16 ulp of
-# the output (2^-8 relative). float32 at 1e-5: that body keeps float32 from
-# load to store, so it differs from the plain version only in summation
-# order, ~1e-6 at these lengths.
+# tests' tolerance: K1 rounds P to bf16 for the tensor cores and both round
+# the output to bf16, so they differ by about one bf16 ulp of the output
+# (2^-8 relative); K4 computes in float32 and rounds hs to bf16 once, one
+# ulp at most. float32 at 1e-5: both kernels keep float32 from load to
+# store, so they differ from the plain versions only in summation order,
+# ~1e-6 at these lengths.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+LSTM_LIBRARY_NOTE = ("no single PyTorch call computes the sLSTM scan: "
+                     "torch.nn.LSTM has other gates and no stabiliser")
 
 OUT_LINES = []
 
@@ -99,16 +111,29 @@ def phase_env() -> None:
           "card": card, "device_count": torch.cuda.device_count()})
 
 
-def phase_build(flash_kernel):
-    from repro_torch.kernels.flash_attention import BUILD_DIR
+def phase_build(kernels):
+    """Build every kernel, one nvcc process each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.build import BUILD_DIR
+
+    def build(item):
+        name, kernel = item
+        t0 = time.time()
+        kernel.build()
+        return name, time.time() - t0
 
     t0 = time.time()
-    flash_kernel.build()
-    ptxas = BUILD_DIR / "flash_attention.ptxas.txt"
-    lines = [ln.strip() for ln in ptxas.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if ptxas.exists() else []
-    emit({"phase": "build", "kernel": "flash_attention",
-          "seconds": time.time() - t0, "ptxas": lines})
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        seconds = dict(pool.map(build, kernels.items()))
+    for name in kernels:
+        ptxas = BUILD_DIR / f"{name}.ptxas.txt"
+        lines = [ln.strip() for ln in ptxas.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln] if ptxas.exists() \
+            else []
+        emit({"phase": "build", "kernel": name, "seconds": seconds[name],
+              "ptxas": lines})
+    emit({"phase": "build", "all_seconds": time.time() - t0})
 
 
 def phase_kernel_check(flash_kernel, flash_attention_ref, seed: int):
@@ -173,12 +198,97 @@ def phase_kernel_check(flash_kernel, flash_attention_ref, seed: int):
     return timed
 
 
-def phase_serve(flash_kernel, seed: int):
+def slstm_bound(B, S, H, dh, dtype):
+    """Least time (ms) of the sLSTM scan: bytes (pre and R read once, hs
+    and the states in and out once) over HBM rate vs the recurrent dot
+    products' FLOPs (2 S 4 d dh per batch row) over the fp32 FMA peak."""
+    d = H * dh
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (esize * (B * S * 4 * d + B * S * d) + 4 * 4 * dh * dh * H
+              + 4 * 8 * B * d)
+    flops = 2 * B * S * 4 * d * dh
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_slstm_check(slstm_kernel, slstm_scan_ref, seed: int):
+    """K4 vs its plain version on the card; times at xLSTM 1.3B's width."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # (label, B, S, H, dh, m0, nonzero initial state)
+    cases = [("ref_1x32_h2_dh16", 1, 32, 2, 16, -1e30, False),
+             ("ref_2x64_h2_dh32", 2, 64, 2, 32, -1e30, False),
+             ("ref_2x48_h4_dh16", 2, 48, 4, 16, -1e30, False),
+             ("ragged_S37_minf", 1, 37, 2, 32, -math.inf, False),
+             ("ragged_S300", 2, 300, 4, 16, -1e30, False),
+             ("state_dh24", 3, 50, 2, 24, 0.0, True),
+             ("xlstm_full", 1, 512, 4, 512, -1e30, False)]
+    timed = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, B, S, H, dh, m0, nonzero in cases:
+            d = H * dh
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+
+            pre = randn(B, S, 4, d).to(dtype)
+            r = randn(4, H, dh, dh) * dh ** -0.5
+            c0 = n0 = h0 = torch.zeros((B, H, dh), device="cuda")
+            m = torch.full((B, H, dh), m0, device="cuda")
+            if nonzero:
+                c0, n0 = randn(B, H, dh), randn(B, H, dh).abs() + 0.5
+                m, h0 = randn(B, H, dh), torch.tanh(randn(B, H, dh))
+            args = (pre, r, c0, n0, m, h0)
+            hs, state = slstm_kernel(*args)
+            torch.cuda.synchronize()
+            hs_ref, state_ref = slstm_scan_ref(*args)
+            err = (hs.float() - hs_ref.float()).abs().max().item()
+            state_err = max((a - b).abs().max().item()
+                            for a, b in zip(state, state_ref))
+            ok = (bool(torch.isfinite(hs).all()) and torch.allclose(
+                hs.float(), hs_ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+                and all(torch.allclose(a, b, atol=1e-5, rtol=1e-5)
+                        for a, b in zip(state, state_ref)))
+            rec = {"phase": "slstm_check", "case": label,
+                   "dtype": str(dtype).split(".")[1], "B": B, "S": S,
+                   "H": H, "dh": dh, "m0": str(m0), "nonzero_state": nonzero,
+                   "max_abs_err": err, "tol": TOL[dtype],
+                   "state_max_abs_err": state_err, "state_tol": 1e-5,
+                   "ok": ok}
+            if label == "xlstm_full":
+                rec["tol_reason"] = (
+                    "float32 math on both sides, summed in other orders; "
+                    "bf16 pre: hs rounded to bf16 once, one ulp (2^-8) "
+                    "apart at most; states float32 at 1e-5")
+            if label == "xlstm_full" and dtype == torch.bfloat16:
+                rec["kernel_ms"] = cuda_ms(lambda: slstm_kernel(*args))
+                rec["ms_per_step"] = rec["kernel_ms"] / S
+                rec["plain_ms"] = cuda_ms(lambda: slstm_scan_ref(*args),
+                                          iters=3, warmup=1)
+                rec["bound_ms"], rec["bound_by"] = slstm_bound(
+                    B, S, H, dh, dtype)
+                rec["library_ms"] = None
+                rec["library_note"] = LSTM_LIBRARY_NOTE
+                timed = rec
+            rec["launches_so_far"] = slstm_kernel.launches
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"sLSTM kernel disagrees with its plain "
+                                     f"version: {rec}")
+    return timed
+
+
+def phase_serve(arch: str, seed: int, lens_range, kernel_name: str,
+                kernel_layers: int, plain_iters: int = 3):
+    """Serve 16 requests of the full-width arch on 8 lanes; every prefill
+    must launch ``kernel_name`` once in each of its ``kernel_layers``
+    layers. Then the breakdown of one prefill and one decode step."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
 
-    cfg = get_config("phi4_mini_3_8b")
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.time()
     params = model.init(seed, device="cuda")
@@ -204,7 +314,7 @@ def phase_serve(flash_kernel, seed: int):
     warm.run([ServeRequest(prompt=probe[0, :32].tolist(), max_new_tokens=2)])
     del warm
 
-    lens = rng.integers(32, 769, n_req)
+    lens = rng.integers(lens_range[0], lens_range[1] + 1, n_req)
     reqs = [ServeRequest(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                          max_new_tokens=max_new) for n in lens]
     engine = ServingEngine(cfg, params, lanes=lanes, max_len=max_len)
@@ -212,28 +322,31 @@ def phase_serve(flash_kernel, seed: int):
                       for t in _leaves(engine.caches))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_kernel.launches = 0
+    for kernel in ops.KERNELS.values():
+        kernel.launches = 0
     stats = engine.run(reqs)
     torch.cuda.synchronize()
-    launches = flash_kernel.launches
-    expected = cfg.n_layers * n_req
+    counts = ops.launch_counts()
+    launches = counts[kernel_name]
+    expected = kernel_layers * n_req
     toks = [t for r in reqs for t in r.output]
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params, "dtype": cfg.dtype,
           "init_s": init_s, "lanes": lanes, "max_len": max_len,
-          "kv_cache_bytes": cache_bytes, "requests": n_req,
+          "cache_bytes": cache_bytes, "requests": n_req,
           "prompt_len_min": int(lens.min()), "prompt_len_max": int(lens.max()),
           "prompt_tokens": int(lens.sum()), "max_new_tokens": max_new,
-          **stats, "flash_launches": launches,
-          "flash_launches_expected": expected,
+          **stats, "launches": counts, "kernel": kernel_name,
+          "launches_expected": expected,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     if launches != expected:
-        raise AssertionError(f"{launches} kernel launches, want {expected}")
+        raise AssertionError(f"{launches} {kernel_name} launches, want "
+                             f"{expected}")
     if any(len(r.output) != max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new_tokens")
     if not all(0 <= t < cfg.vocab_size for t in toks):
         raise AssertionError("a token outside the vocabulary")
-    phase_breakdown(model, params, engine, rng)
+    phase_breakdown(model, params, engine, rng, plain_iters)
     del engine, params
     torch.cuda.empty_cache()
     return launches
@@ -250,20 +363,21 @@ def _host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def phase_breakdown(model, params, engine, rng):
-    """Where a request's time goes: one 512-token prefill (kernel and plain
-    attention) and one 8-lane decode step, on the host clock; the device's
-    busy share of a decode step from torch.profiler."""
+def phase_breakdown(model, params, engine, rng, plain_iters: int):
+    """Where a request's time goes: one 512-token prefill (with the kernels
+    and with the model's plain paths) and one 8-lane decode step, on the
+    host clock; the device's busy share of a decode step from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = model.cfg
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, 512),
                              device="cuda")[None]
-    rec = {"phase": "breakdown", "prefill_S": 512}
-    for kernel in (True, False):
+    rec = {"phase": "breakdown", "arch": cfg.name, "prefill_S": 512}
+    for kernel, iters in ((True, 3), (False, plain_iters)):
         rec[f"prefill_ms_{'kernel' if kernel else 'plain'}"] = _host_ms(
             lambda: model.prefill(params, prompt, max_len=engine.max_len,
-                                  use_kernel=kernel), 3)
+                                  use_kernel=kernel), iters)
     tokens = torch.zeros((engine.lanes, 1), dtype=torch.long, device="cuda")
     positions = torch.full((engine.lanes,), 600, device="cuda")
 
@@ -298,14 +412,18 @@ def phase_breakdown(model, params, engine, rng):
     emit(rec)
 
 
-def phase_tokens(seed: int):
-    """Engine (kernel prefill) == single-stream greedy (plain prefill)."""
+def phase_tokens(arch: str, seed: int, plain_kernel_path: bool):
+    """Engine (kernel prefill) == single-stream greedy decoding, at full
+    width, 2 layers, float32. The single stream prefills through the plain
+    attention path (``plain_kernel_path`` False) or through the kernel path
+    with the kernels' plain versions (True: the sLSTM preactivations are
+    rounded to bf16 at the same point on both sides)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
 
-    cfg = dataclasses.replace(get_config("phi4_mini_3_8b"), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     model = build_model(cfg)
     params = model.init(seed + 1, device="cuda")
     rng = np.random.default_rng(seed + 1)
@@ -314,12 +432,16 @@ def phase_tokens(seed: int):
                                              int(n)).tolist(),
                          max_new_tokens=n_new)
             for n in rng.integers(8, 65, 7)]
-    ServingEngine(cfg, params, lanes=3, max_len=max_len).run(reqs)
+    stats = ServingEngine(cfg, params, lanes=3, max_len=max_len).run(reqs)
     mismatches = 0
     for r in reqs:
-        last, caches = model.prefill(
-            params, torch.as_tensor(r.prompt, device="cuda")[None],
-            max_len=max_len)
+        prompt = torch.as_tensor(r.prompt, device="cuda")[None]
+        if plain_kernel_path:
+            with ops.plain_versions():
+                last, caches = model.prefill(params, prompt, max_len=max_len,
+                                             use_kernel=True)
+        else:
+            last, caches = model.prefill(params, prompt, max_len=max_len)
         ref = [int(last[0].argmax())]
         for i in range(n_new - 1):
             lg, caches = model.decode_step(
@@ -328,8 +450,11 @@ def phase_tokens(seed: int):
             ref.append(int(lg[0].argmax()))
         mismatches += r.output != ref
     emit({"phase": "tokens", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "layer_kinds": [cfg.layer_kind(i) for i in range(cfg.n_layers)],
           "dtype": cfg.dtype, "requests": len(reqs),
-          "tokens_each": n_new, "mismatched_requests": mismatches})
+          "tokens_each": n_new, "engine_launches": {
+              k: v for k, v in stats.items() if k.endswith("_launches")},
+          "mismatched_requests": mismatches})
     if mismatches:
         raise AssertionError(f"{mismatches} requests differ from "
                              "single-stream greedy decoding")
@@ -353,27 +478,44 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from repro_torch.kernels.flash_attention import (
-        SOURCE, flash_attention_ref, flash_kernel)
+    from repro_torch.kernels import flash_attention, ops, slstm_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env()
-    phase_build(flash_kernel)
-    timed = phase_kernel_check(flash_kernel, flash_attention_ref, args.seed)
-    launches = phase_serve(flash_kernel, args.seed)
-    phase_tokens(args.seed)
+    phase_build(ops.KERNELS)
+    flash_timed = phase_kernel_check(
+        flash_attention.flash_kernel, flash_attention.flash_attention_ref,
+        args.seed)
+    slstm_timed = phase_slstm_check(
+        slstm_scan.slstm_kernel, slstm_scan.slstm_scan_ref, args.seed)
+    flash_launches = phase_serve("phi4_mini_3_8b", args.seed, (32, 768),
+                                 "flash_attention", 32)
+    phase_tokens("phi4_mini_3_8b", args.seed, plain_kernel_path=False)
+    slstm_launches = phase_serve("xlstm_1_3b", args.seed, (32, 512),
+                                 "slstm_scan", 24, plain_iters=1)
+    phase_tokens("xlstm_1_3b", args.seed, plain_kernel_path=True)
 
-    rec = timed[("phi4_S512", torch.bfloat16)]
+    rec = flash_timed[("phi4_S512", torch.bfloat16)]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
-        "source": str(SOURCE.relative_to(ROOT)),
+        "source": str(flash_attention.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention.py:85",
-        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "launches": flash_launches, "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
-        "shape": "B=1 S=T=512 Hq=24 Hkv=8 hd=128 bf16 causal"}]})
+        "shape": "B=1 S=T=512 Hq=24 Hkv=8 hd=128 bf16 causal"}, {
+        "name": "slstm_scan", "route": "cuda",
+        "source": str(slstm_scan.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/slstm_scan.py:76",
+        "launches": slstm_launches,
+        "max_abs_err": slstm_timed["max_abs_err"],
+        "ms": slstm_timed["kernel_ms"], "plain_ms": slstm_timed["plain_ms"],
+        "bound_ms": slstm_timed["bound_ms"],
+        "bound_by": slstm_timed["bound_by"], "library_ms": None,
+        "library_note": LSTM_LIBRARY_NOTE,
+        "shape": "B=1 S=512 H=4 dh=512 bf16 pre (xLSTM 1.3B)"}]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(OUT_LINES) + "\n")

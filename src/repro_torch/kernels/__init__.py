@@ -1,5 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 flash_attention.py -- causal/windowed/softcapped GQA attention forward
-(CUDA C++ in csrc/flash_attention.cu). ops.py dispatches on the device.
+(CUDA C++ in csrc/flash_attention.cu); slstm_scan.py -- the sLSTM
+recurrence over a whole sequence (CUDA C++ in csrc/slstm_scan.cu).
+build.py compiles and loads them at first use; ops.py dispatches on the
+device.
 """

@@ -3,28 +3,24 @@
 ``flash_attention_ref`` is the plain PyTorch version (full materialisation,
 float32 math): the CPU path and the yardstick the kernel is held against.
 ``FlashAttentionKernel`` builds ``csrc/flash_attention.cu`` for ``sm_90a``
-with ``nvcc`` into a shared library with a plain C interface at first use
-(into ``build/kernels/`` at the checkout's root), loads it with ``ctypes``
-and launches it on PyTorch's current stream. ``flash_kernel.launches``
-counts the launches.
+at first use (``kernels/build.py``), loads it with ``ctypes`` and launches
+it on PyTorch's current stream. ``flash_kernel.launches`` counts the
+launches.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import KernelLibrary
+
 NEG_INF = -2.3819763e38
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -56,59 +52,19 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
     return out.reshape(B, S, Hq, hd).to(q.dtype)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build_library(source: Path, name: str) -> Path:
-    """Compile ``source`` for sm_90a into ``BUILD_DIR/<name>.so``.
-
-    Skips the build when the library is newer than its source. The library
-    is written under a temporary name and renamed, so a concurrent reader
-    never sees a half-written file.
-    """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"{name}.so"
-    if out.exists() and out.stat().st_mtime >= source.stat().st_mtime:
-        return out
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    (BUILD_DIR / f"{name}.ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-class FlashAttentionKernel:
+class FlashAttentionKernel(KernelLibrary):
     """ctypes binding of the CUDA kernel; ``launches`` counts its launches."""
 
-    def __init__(self):
-        self.launches = 0
-        self._lib = None
-        self._lock = threading.Lock()
+    source = SOURCE
+    name = "flash_attention"
 
-    def build(self):
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(build_library(SOURCE, "flash_attention")))
-                fn = lib.flash_attention_fwd
-                fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                               + [ctypes.c_longlong] * 12
-                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_float, ctypes.c_void_p])
-                fn.restype = ctypes.c_int
-                self._lib = lib
-        return self._lib
+    def _bind(self, lib) -> None:
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
 
     def __call__(self, q, k, v, causal: bool = True, window: int = 0,
                  softcap: float = 0.0):

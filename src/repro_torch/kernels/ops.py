@@ -2,18 +2,53 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version. Nothing falls back
-from the kernel to the plain version.
+from the kernel to the plain version. ``plain_versions`` is a switch for
+checks only: inside it, CUDA tensors take the plain versions too.
 """
 from __future__ import annotations
 
+import contextlib
+
 from repro_torch.kernels.flash_attention import flash_attention_ref, flash_kernel
+from repro_torch.kernels.slstm_scan import slstm_kernel, slstm_scan_ref
+
+KERNELS = {"flash_attention": flash_kernel, "slstm_scan": slstm_kernel}
+_plain = {"on": False}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run the plain versions on CUDA tensors as well, inside the block.
+
+    For checks that hold a path through the kernels against the same path
+    through their plain versions on the card; serving never enters it.
+    """
+    before = _plain["on"]
+    _plain["on"] = True
+    try:
+        yield
+    finally:
+        _plain["on"] = before
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far}."""
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype."""
-    if q.is_cuda:
+    if q.is_cuda and not _plain["on"]:
         return flash_kernel(q, k, v, causal=causal, window=window,
                             softcap=softcap)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap)
+
+
+def slstm_scan(pre, r_all, c0, n0, m0, h0):
+    """pre: [B,S,4,d]; r_all: [4,H,dh,dh]; c0/n0/m0/h0: [B,H,dh] float32.
+    Returns (hs [B,S,d] in pre's dtype, (cT, nT, mT, hT) [B,H,dh])."""
+    if pre.is_cuda and not _plain["on"]:
+        return slstm_kernel(pre, r_all, c0, n0, m0, h0)
+    return slstm_scan_ref(pre, r_all, c0, n0, m0, h0)

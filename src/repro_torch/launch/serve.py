@@ -2,8 +2,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4_mini_3_8b \\
       --full --device cuda --requests 16 --lanes 8 --max-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b \\
+      --device cpu
 
-Without ``--full`` the arch's smoke config is served.
+Without ``--full`` the arch's smoke config is served. The stats end with
+each kernel's launches in the run.
 """
 from __future__ import annotations
 

@@ -40,8 +40,9 @@ class Model:
     @torch.no_grad()
     def forward(self, params, tokens, frontend_embeds=None, caches=None,
                 cache_index=None, use_kernel: bool = False):
-        """Returns (logits [B,S,padded_vocab], caches). Caches are written
-        in place."""
+        """Returns (logits [B,S,padded_vocab], caches). Caches (k/v and
+        recurrent states) are written in place. ``use_kernel`` sends
+        prefill attention and the sLSTM scan through ``kernels.ops``."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, frontend_embeds)
         B, S = tokens.shape
@@ -61,7 +62,8 @@ class Model:
 
     def prefill(self, params, tokens, frontend_embeds=None, max_len=None,
                 use_kernel: bool = False):
-        """Fill fresh caches for [0, S); returns (last_logits, caches)."""
+        """Fill fresh caches for [0, S) (k/v up to ``max_len``, or the
+        recurrent states after the prompt); returns (last_logits, caches)."""
         B, S = tokens.shape
         caches = self.init_caches(B, max_len or S, tokens.device)
         logits, caches = self.forward(params, tokens, frontend_embeds,

@@ -3,7 +3,14 @@
 The parameter and cache layout is the reference's: ``{posNN: tree}`` with a
 leading ``n_groups`` axis on every leaf, so converted weights and caches
 compare one for one. Where the reference scans over groups, the port loops
-in Python. Only dense attention layers are ported in this slice.
+in Python. Attention (dense FFN) and xLSTM (mLSTM, sLSTM) layers are
+ported; Mamba and MoE layers raise ``NotImplementedError``.
+
+Caches are written in place: attention writes its new keys and values into
+the k/v tensors it is given, and the recurrent layers copy their new state
+into the state tensors of the cache (``{posNN: {C, n, m, conv}}`` for
+mLSTM, ``{posNN: {c, n, m, h}}`` for sLSTM, each with the leading
+``n_groups`` axis).
 """
 from __future__ import annotations
 
@@ -13,12 +20,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import xlstm
 from repro_torch.models.layers import ffn_apply, ffn_init, rmsnorm, rmsnorm_init
 
 _NOT_PORTED = {
     "ssm": "ROADMAP Queue 1 item 8 (Mamba / jamba)",
-    "mlstm": "ROADMAP Queue 1 item 9 (xLSTM)",
-    "slstm": "ROADMAP Queue 1 item 9 (xLSTM)",
     "moe": "ROADMAP Queue 1 item 7 (MoE)",
 }
 
@@ -29,7 +35,7 @@ def _pos_name(p: int) -> str:
 
 def _check_ported(cfg: ModelConfig, layer_pos: int) -> str:
     kind = cfg.layer_kind(layer_pos)
-    if kind != "attn":
+    if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"{kind} layers are not ported yet: {_NOT_PORTED[kind]}")
     if cfg.layer_is_moe(layer_pos):
@@ -48,11 +54,13 @@ def stack_init(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
     """Stacked params: {posNN: block params with leading n_groups dim}."""
     G, dev = cfg.n_groups, gen.device
     out = {}
+    mixer_init = {"attn": attn.attn_init, "mlstm": xlstm.mlstm_init,
+                  "slstm": xlstm.slstm_init}
     for p in range(cfg.resolved_scan_period):
-        _check_ported(cfg, p)
+        kind = _check_ported(cfg, p)
         block = {"mixer_norm": rmsnorm_init(cfg.d_model, (G,), dev),
-                 "mixer": attn.attn_init(gen, cfg, dtype, (G,))}
-        if cfg.d_ff > 0:
+                 "mixer": mixer_init[kind](gen, cfg, dtype, (G,))}
+        if kind == "attn" and cfg.d_ff > 0:
             block["ffn_norm"] = rmsnorm_init(cfg.d_model, (G,), dev)
             block["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
                                     dtype, (G,))
@@ -65,10 +73,22 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
                 cache: Optional[Dict] = None, cache_index=None,
                 use_kernel: bool = False):
     """Apply one block (its cache, if any, is written in place)."""
-    _check_ported(cfg, layer_pos)
+    kind = _check_ported(cfg, layer_pos)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
-    x = x + attn.attn_apply(params["mixer"], h, positions, cfg, cache=cache,
-                            cache_index=cache_index, use_kernel=use_kernel)
+    if kind == "attn":
+        out = attn.attn_apply(params["mixer"], h, positions, cfg, cache=cache,
+                              cache_index=cache_index, use_kernel=use_kernel)
+    else:
+        if kind == "mlstm":
+            out, state = xlstm.mlstm_apply(params["mixer"], h, cfg,
+                                           state=cache)
+        else:
+            out, state = xlstm.slstm_apply(params["mixer"], h, cfg,
+                                           state=cache, use_kernel=use_kernel)
+        if cache is not None:
+            for key, value in state.items():
+                cache[key].copy_(value)
+    x = x + out
     if "ffn" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
         x = x + ffn_apply(params["ffn"], h, cfg.act)
@@ -94,10 +114,18 @@ def stack_apply(params, x, positions, cfg: ModelConfig,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device="cpu") -> Dict[str, Any]:
-    """Stacked caches {posNN: {k, v: [n_groups, B, L, Hkv, hd]}}."""
+    """Stacked caches {posNN: tree with a leading n_groups axis}: attention
+    {k, v: [n_groups, B, L, Hkv, hd]}, or an xLSTM layer's recurrent state
+    (which does not grow with ``max_len``)."""
     out = {}
+    lead = (cfg.n_groups,)
     for p in range(cfg.resolved_scan_period):
-        _check_ported(cfg, p)
-        out[_pos_name(p)] = attn.init_cache(cfg, batch, max_len, dtype,
-                                            device, lead=(cfg.n_groups,))
+        kind = _check_ported(cfg, p)
+        if kind == "attn":
+            cache = attn.init_cache(cfg, batch, max_len, dtype, device,
+                                    lead=lead)
+        else:
+            cache = xlstm.init_xlstm_state(cfg, batch, kind, dtype, device,
+                                           lead=lead)
+        out[_pos_name(p)] = cache
     return out

@@ -9,10 +9,12 @@ the first free lane. Lanes run at their own cache positions, so a finished
 request frees its lane for the next admission at once.
 
 Prefill runs one request at a time into a fresh one-lane cache that is then
-copied into the lane. With ``use_kernel`` (the default) prefill attention
-goes through ``kernels.ops.flash_attention``: the hand-written kernel on
-CUDA tensors, its plain version on CPU tensors. ``use_kernel=False`` runs
-the plain attention path of the model, as the reference engine does.
+copied into the lane: k/v for attention layers, the recurrent states for
+xLSTM layers. With ``use_kernel`` (the default) prefill attention goes
+through ``kernels.ops.flash_attention`` and the sLSTM recurrence through
+``kernels.ops.slstm_scan``: the hand-written kernels on CUDA tensors, their
+plain versions on CPU tensors. ``use_kernel=False`` runs the model's plain
+paths, as the reference engine does.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.job import Job, Task
 from repro_torch.core.resources import ResourceManager
+from repro_torch.kernels import ops
 from repro_torch.models import build_model
 
 _req_ids = itertools.count(1)
@@ -112,7 +115,8 @@ class ServingEngine:
             self.active_mask[lane] = True
 
     def _scatter_lane(self, lane: int, src_caches) -> None:
-        """Copy a one-lane cache tree into lane ``lane`` of the engine cache."""
+        """Copy a one-lane cache tree into lane ``lane`` of the engine cache:
+        every leaf, k/v and recurrent states alike (lanes are axis 1)."""
         for name, tree in self.caches.items():
             for key, dst in tree.items():
                 dst[:, lane] = src_caches[name][key][:, 0]
@@ -150,6 +154,7 @@ class ServingEngine:
 
     def run(self, requests: Sequence[ServeRequest]) -> Dict:
         """Serve requests to completion; returns summary stats."""
+        launches0 = ops.launch_counts()
         t0 = time.time()
         for r in requests:
             self.submit(r)
@@ -157,6 +162,8 @@ class ServingEngine:
             self.step()
         wall = time.time() - t0
         lat = [r.done_time - r.submit_time for r in requests]
+        launches = {f"{name}_launches": n - launches0[name]
+                    for name, n in ops.launch_counts().items()}
         return {
             "wall_s": wall,
             "requests": len(requests),
@@ -166,4 +173,5 @@ class ServingEngine:
             "mean_latency_s": float(np.mean(lat)) if lat else 0.0,
             "p99_latency_s": float(np.percentile(lat, 99)) if lat else 0.0,
             "throughput_tok_s": self.decode_tokens / max(wall, 1e-9),
+            **launches,
         }

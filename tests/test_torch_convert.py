@@ -1,5 +1,6 @@
 """The port's config copy and weight/cache conversion against the reference."""
 import dataclasses
+from pathlib import Path
 
 import pytest
 
@@ -15,6 +16,9 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import configs as port_configs  # noqa: E402
 from torch_parity import models, port_config, to_numpy  # noqa: E402
 
+PORT_CONFIG_DIR = (Path(__file__).resolve().parents[1]
+                   / "src" / "repro_torch" / "configs")
+
 
 def _leaves(tree, prefix=""):
     for k, v in tree.items():
@@ -24,9 +28,11 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "gemma_2b"])
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "gemma_2b", "xlstm_1_3b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_param_round_trip_is_exact(arch, dtype):
+    """Same keys, shapes, dtypes (the float32 leaves of a bf16 model stay
+    float32) and values after the round trip."""
     _, jp, _, pp = models(arch, dtype)
     ref = dict(_leaves(to_numpy(jp)))
     got = dict(_leaves(pp))
@@ -56,6 +62,27 @@ def test_cache_round_trip_is_exact():
         np.testing.assert_array_equal(got[key], a.astype(np.float32))
 
 
+def test_xlstm_state_round_trip_is_exact():
+    """The recurrent caches: {posNN: {C, n, m, conv} | {c, n, m, h}}, float32
+    states and a bf16 conv state."""
+    cfg = get_smoke_config("xlstm_1_3b")
+    rng = np.random.default_rng(1)
+    caches = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
+        init_caches(cfg, 2, 16))
+    ref = dict(_leaves(to_numpy(caches)))
+    tree = convert.to_torch(to_numpy(caches))
+    got = dict(_leaves(convert.to_numpy(tree)))
+    assert ref.keys() == got.keys() == {
+        "pos00/C", "pos00/n", "pos00/m", "pos00/conv",
+        "pos01/c", "pos01/n", "pos01/m", "pos01/h"}
+    assert tree["pos00"]["conv"].dtype == torch.bfloat16
+    assert tree["pos01"]["c"].dtype == torch.float32
+    for key, a in ref.items():
+        assert a.shape[:2] == (cfg.n_groups, 2), key
+        np.testing.assert_array_equal(got[key], a.astype(np.float32))
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("size", ["full", "smoke"])
 def test_config_copy_matches_reference(arch, size):
@@ -73,12 +100,29 @@ def test_config_copy_matches_reference(arch, size):
 
 
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "phi4-mini-3.8b",
-                                  "gemma_2b", "gemma-2b"])
+                                  "gemma_2b", "gemma-2b", "chatglm3_6b",
+                                  "codeqwen15_7b", "internvl2_2b",
+                                  "musicgen_large", "xlstm_1_3b"])
 def test_ported_config_files_match_reference(arch):
     for get, port_get in ((get_config, port_configs.get_config),
                           (get_smoke_config, port_configs.get_smoke_config)):
         assert (dataclasses.asdict(port_get(arch))
                 == dataclasses.asdict(get(arch)))
+
+
+def test_every_port_config_file_matches_reference():
+    """Each config file under repro_torch/configs/ is a copy of the
+    reference's, CONFIG and SMOKE_CONFIG field for field."""
+    names = sorted(p.stem for p in PORT_CONFIG_DIR.glob("*.py")
+                   if p.stem not in ("__init__", "base"))
+    assert len(names) == 7, names
+    for arch in names:
+        assert arch in ARCH_IDS, arch
+        for get, port_get in ((get_config, port_configs.get_config),
+                              (get_smoke_config,
+                               port_configs.get_smoke_config)):
+            assert (dataclasses.asdict(port_get(arch))
+                    == dataclasses.asdict(get(arch))), arch
 
 
 def test_phi4_full_size_counts():

@@ -27,7 +27,8 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_sources():
     assert len(PORT_FILES) >= 10
-    assert (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").exists()
+    for name in ("flash_attention", "slstm_scan"):
+        assert (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").exists()
 
 
 @pytest.mark.parametrize(

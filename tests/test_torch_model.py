@@ -164,7 +164,7 @@ def test_random_init_is_seeded_and_in_reference_layout():
     assert not torch.equal(wq[0], wq[2])
 
 
-@pytest.mark.parametrize("arch", ["jamba_v01_52b", "xlstm_1_3b",
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "arctic_480b",
                                   "granite_moe_1b_a400m"])
 def test_unported_layers_raise_with_roadmap_item(arch):
     cfg = port_config(get_smoke_config(arch))

@@ -1,6 +1,6 @@
 """The port's continuous-batching engine against the JAX engine, token for
-token in float32, on every scenario of test_serving.py; and the trimmed
-scheduler copies it admits through."""
+token in float32, on every scenario of test_serving.py and on xLSTM (the
+recurrent caches); and the trimmed scheduler copies it admits through."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -23,10 +23,15 @@ def setup():
     return jm, jp, pm, pp
 
 
-def _greedy_ref(model, params, prompt, n_new, max_len):
+@pytest.fixture(scope="module")
+def xlstm_setup():
+    return models("xlstm_1_3b", "float32")
+
+
+def _greedy_ref(model, params, prompt, n_new, max_len, use_kernel=False):
     """Single-stream greedy decoding with the port's model."""
     last, caches = model.prefill(params, torch.tensor([prompt]),
-                                 max_len=max_len)
+                                 max_len=max_len, use_kernel=use_kernel)
     toks = [int(last[0].argmax())]
     for i in range(n_new - 1):
         lg, caches = model.decode_step(params, torch.tensor([[toks[-1]]]),
@@ -150,3 +155,43 @@ def test_port_prefill_matches_reference_engine_prefill(setup):
     lt, _ = pm.prefill(pp, torch.from_numpy(prompt)[None], max_len=16,
                        use_kernel=True)
     assert int(lt[0].argmax()) == int(jnp.argmax(lj[0]))
+
+
+XLSTM_PROMPT_LENS = (3, 11, 1, 17, 5)
+
+
+def test_xlstm_engine_matches_reference_engine(xlstm_setup):
+    """use_kernel=False (the in-loop float32 sLSTM path, the only one the
+    reference engine takes) token for token against the JAX engine, over
+    ragged prompts (one of a single token: a recurrent-step prefill), lane
+    reuse and every state leaf copied into its lane; and against
+    single-stream greedy decoding."""
+    _, _, pm, pp = xlstm_setup
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, pm.cfg.vocab_size, n).tolist()
+               for n in XLSTM_PROMPT_LENS]
+    reqs, _ = _serve_both(xlstm_setup, prompts, lanes=2, max_len=40,
+                          use_kernel=False, max_new_tokens=5)
+    for r in reqs:
+        assert r.output == _greedy_ref(pm, pp, r.prompt, 5, 40)
+
+
+def test_xlstm_kernel_path_matches_reference_prefill(xlstm_setup):
+    """use_kernel=True (bf16 preactivations, the sLSTM scan's plain version
+    on the CPU): each request's first token is the argmax of the JAX
+    model.prefill(..., use_pallas=True), and the engine's tokens equal
+    single-stream greedy decoding through the same path."""
+    jm, jp, pm, pp = xlstm_setup
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, pm.cfg.vocab_size, n).tolist()
+               for n in XLSTM_PROMPT_LENS]
+    reqs = [ServeRequest(prompt=p, max_new_tokens=4) for p in prompts]
+    stats = ServingEngine(pm.cfg, pp, lanes=2, max_len=32,
+                          use_kernel=True).run(reqs)
+    assert stats["slstm_scan_launches"] == 0   # CPU: the plain version
+    for r in reqs:
+        lj, _ = jm.prefill(jp, jnp.asarray(r.prompt)[None], max_len=32,
+                           use_pallas=True)
+        assert r.output[0] == int(jnp.argmax(lj[0]))
+        assert r.output == _greedy_ref(pm, pp, r.prompt, 4, 32,
+                                       use_kernel=True)
