@@ -6,7 +6,8 @@
 Phases, each printing one JSON line (and failing the run on any error):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build the kernels from src/repro_torch/kernels/csrc, one nvcc each,
-     all started together: flash attention (K1) and the sLSTM scan (K4);
+     all started together: flash attention (K1), the sLSTM scan (K4) and
+     the selective scan (K3);
   3. hold K1 against its plain PyTorch version on the card over head dims
      16..256, MHA/GQA/MQA, ragged S, window and softcap, and time it at
      Phi-4-mini's prefill shapes beside its plain version, torch's
@@ -14,15 +15,25 @@ Phases, each printing one JSON line (and failing the run on any error):
   4. hold K4 against its plain version over the reference test's shapes,
      ragged S, float32 and bf16 preactivations, m0 = -1e30 and -inf, a
      nonzero initial state and xLSTM 1.3B's full width, and time it there;
-  5. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
+  5. hold K3 against its plain version over the reference test's shapes,
+     an initial state, ragged S, a d that no block divides, the model's
+     mixed dtypes (dt float32) and Jamba's full width, each in float32 and
+     in bf16, and time it at full width;
+  6. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
      the continuous-batching engine, check that every prefill went through
      K1, and break a prefill and a decode step down;
-  6. token check: Phi-4-mini at full width and 2 layers in float32, the
+  7. token check: Phi-4-mini at full width and 2 layers in float32, the
      engine's tokens equal single-stream greedy decoding;
-  7. the same serving run and breakdown for full-width xLSTM 1.3B (every
+  8. the same serving run and breakdown for full-width xLSTM 1.3B (every
      sLSTM prefill through K4);
-  8. the xLSTM token check (one mLSTM and one sLSTM layer at full width,
-     float32; the single stream runs K4's plain version).
+  9. the xLSTM token check (one mLSTM and one sLSTM layer at full width,
+     float32; the single stream runs K4's plain version);
+ 10. the same serving run and breakdown for Jamba at every published width,
+     cut to 16 of its 32 layers (every Mamba prefill through K3, every
+     attention prefill through K1);
+ 11. the Jamba token check: one group of 8 layers (7 Mamba, 1 attention,
+     4 MoE) at full width in float32, 3 lanes, against single-stream greedy
+     decoding through the plain path.
 Then a line with the kernel table, and last the device line. Exits
 nonzero without a CUDA device or without the repo's sources beside it.
 """
@@ -56,6 +67,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 LSTM_LIBRARY_NOTE = ("no single PyTorch call computes the sLSTM scan: "
                      "torch.nn.LSTM has other gates and no stabiliser")
+SSM_LIBRARY_NOTE = ("no single PyTorch call computes the selective scan: "
+                    "its decay depends on the input at every step")
 
 OUT_LINES = []
 
@@ -278,23 +291,110 @@ def phase_slstm_check(slstm_kernel, slstm_scan_ref, seed: int):
     return timed
 
 
-def phase_serve(arch: str, seed: int, lens_range, kernel_name: str,
-                kernel_layers: int, plain_iters: int = 3):
-    """Serve 16 requests of the full-width arch on 8 lanes; every prefill
-    must launch ``kernel_name`` once in each of its ``kernel_layers``
-    layers. Then the breakdown of one prefill and one decode step."""
-    from repro_torch.configs import get_config
+def ssm_bound(Bb, S, d, N, u_dtype, dt_dtype):
+    """Least time (ms) of the selective scan: bytes (u, dt, B, C, A, D and
+    h0 read once, y and h_last written once) over HBM rate vs ~6 fp32
+    operations per (t, channel, n) over the fp32 peak. Also returns the
+    exps it takes (one per (t, channel, n))."""
+    eu = torch.finfo(u_dtype).bits // 8
+    edt = torch.finfo(dt_dtype).bits // 8
+    nbytes = (eu * 2 * Bb * S * d + edt * Bb * S * d + eu * 2 * Bb * S * N
+              + 4 * (d * N + d) + 4 * 2 * Bb * d * N)
+    exps = Bb * S * d * N
+    flops = 6 * exps
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
+            exps)
+
+
+def phase_ssm_check(ssm_kernel, ssm_scan_ref, seed: int):
+    """K3 vs its plain version on the card; times at Jamba's full width."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # (label, Bb, S, d, N, initial state, dt float32 whatever the dtype)
+    cases = [("ref_1x32_d64_n8", 1, 32, 64, 8, False, False),
+             ("ref_2x64_d128_n16", 2, 64, 128, 16, False, False),
+             ("ref_1x48_d256_n4", 1, 48, 256, 4, False, False),
+             ("state_1x32_d64_n8", 1, 32, 64, 8, True, False),
+             ("ragged_S37", 1, 37, 64, 8, False, False),
+             ("ragged_S100", 2, 100, 128, 16, True, False),
+             ("d200", 1, 20, 200, 16, True, False),
+             ("model_dtypes", 2, 64, 256, 16, True, True),
+             ("jamba_full", 1, 512, 8192, 16, True, True)]
+    timed = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, Bb, S, d, N, with_h0, dt_f32 in cases:
+
+            def rand(*shape):
+                return torch.rand(shape, generator=gen, device="cuda")
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device="cuda")
+
+            dt_dtype = torch.float32 if dt_f32 else dtype
+            u = randn(Bb, S, d).to(dtype)
+            dt = (rand(Bb, S, d) * 0.099 + 1e-3).to(dt_dtype)
+            A = -(rand(d, N) * 1.5 + 0.5)
+            Bm, Cm = randn(Bb, S, N).to(dtype), randn(Bb, S, N).to(dtype)
+            D = randn(d)
+            h0 = randn(Bb, d, N) if with_h0 else None
+            args = (u, dt, A, Bm, Cm, D, h0)
+            y, h = ssm_kernel(*args)
+            torch.cuda.synchronize()
+            y_ref, h_ref = ssm_scan_ref(*args)
+            err = (y.float() - y_ref.float()).abs().max().item()
+            h_err = (h - h_ref).abs().max().item()
+            ok = (bool(torch.isfinite(y).all()) and torch.allclose(
+                y.float(), y_ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+                and torch.allclose(h, h_ref, atol=1e-5, rtol=1e-5))
+            rec = {"phase": "ssm_check", "case": label,
+                   "dtype": str(dtype).split(".")[1],
+                   "dt_dtype": str(dt_dtype).split(".")[1], "Bb": Bb,
+                   "S": S, "d": d, "N": N, "initial_state": with_h0,
+                   "max_abs_err": err, "tol": TOL[dtype],
+                   "state_max_abs_err": h_err, "state_tol": 1e-5, "ok": ok}
+            if label == "jamba_full":
+                rec["tol_reason"] = (
+                    "float32 math on both sides, the sum over n in another "
+                    "order; bf16 u/B/C: y rounded to bf16 once, one ulp "
+                    "(2^-8) apart at most; h_last float32 at 1e-5")
+            if label == "jamba_full" and dtype == torch.bfloat16:
+                rec["kernel_ms"] = cuda_ms(lambda: ssm_kernel(*args))
+                rec["plain_ms"] = cuda_ms(lambda: ssm_scan_ref(*args),
+                                          iters=3, warmup=1)
+                (rec["bound_ms"], rec["bound_by"], rec["bound_bytes"],
+                 rec["bound_flops"], rec["exps"]) = ssm_bound(
+                    Bb, S, d, N, dtype, dt_dtype)
+                rec["library_ms"] = None
+                rec["library_note"] = SSM_LIBRARY_NOTE
+                timed = rec
+            rec["launches_so_far"] = ssm_kernel.launches
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"selective-scan kernel disagrees with "
+                                     f"its plain version: {rec}")
+    return timed
+
+
+def phase_serve(cfg, seed: int, lens_range, per_request: dict,
+                plain_iters: int = 3):
+    """Serve 16 requests of the full-width model ``cfg`` on 8 lanes; every
+    prefill must launch each kernel ``per_request[name]`` times (and any
+    other kernel never). Then the breakdown of one prefill and one decode
+    step."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
 
-    cfg = get_config(arch)
     model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     params = model.init(seed, device="cuda")
     torch.cuda.synchronize()
     init_s = time.time() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     lanes, max_len, n_req, max_new = 8, 1024, 16, 32
 
     # one full-width prefill checked on its own: finite logits, padded
@@ -327,21 +427,20 @@ def phase_serve(arch: str, seed: int, lens_range, kernel_name: str,
     stats = engine.run(reqs)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    launches = counts[kernel_name]
-    expected = kernel_layers * n_req
+    expected = {name: per_request.get(name, 0) * n_req for name in counts}
     toks = [t for r in reqs for t in r.output]
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "params": n_params, "dtype": cfg.dtype,
-          "init_s": init_s, "lanes": lanes, "max_len": max_len,
+          "d_model": cfg.d_model, "params": n_params,
+          "param_bytes": param_bytes, "dtype": cfg.dtype,
+          "init_s": init_s, "init_max_memory_allocated": init_peak,
+          "lanes": lanes, "max_len": max_len,
           "cache_bytes": cache_bytes, "requests": n_req,
           "prompt_len_min": int(lens.min()), "prompt_len_max": int(lens.max()),
           "prompt_tokens": int(lens.sum()), "max_new_tokens": max_new,
-          **stats, "launches": counts, "kernel": kernel_name,
-          "launches_expected": expected,
+          **stats, "launches": counts, "launches_expected": expected,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    if launches != expected:
-        raise AssertionError(f"{launches} {kernel_name} launches, want "
-                             f"{expected}")
+    if counts != expected:
+        raise AssertionError(f"launches {counts}, want {expected}")
     if any(len(r.output) != max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new_tokens")
     if not all(0 <= t < cfg.vocab_size for t in toks):
@@ -349,7 +448,7 @@ def phase_serve(arch: str, seed: int, lens_range, kernel_name: str,
     phase_breakdown(model, params, engine, rng, plain_iters)
     del engine, params
     torch.cuda.empty_cache()
-    return launches
+    return counts
 
 
 def _host_ms(fn, iters: int) -> float:
@@ -412,18 +511,17 @@ def phase_breakdown(model, params, engine, rng, plain_iters: int):
     emit(rec)
 
 
-def phase_tokens(arch: str, seed: int, plain_kernel_path: bool):
-    """Engine (kernel prefill) == single-stream greedy decoding, at full
-    width, 2 layers, float32. The single stream prefills through the plain
-    attention path (``plain_kernel_path`` False) or through the kernel path
-    with the kernels' plain versions (True: the sLSTM preactivations are
-    rounded to bf16 at the same point on both sides)."""
-    from repro_torch.configs import get_config
+def phase_tokens(cfg, seed: int, plain_kernel_path: bool):
+    """Engine (kernel prefill, 3 lanes) == single-stream greedy decoding of
+    the model ``cfg`` (full width, cut in depth, float32). The single
+    stream prefills through the plain paths (``plain_kernel_path`` False)
+    or through the kernel path with the kernels' plain versions (True: the
+    sLSTM preactivations are rounded to bf16 at the same point on both
+    sides)."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     model = build_model(cfg)
     params = model.init(seed + 1, device="cuda")
     rng = np.random.default_rng(seed + 1)
@@ -451,10 +549,15 @@ def phase_tokens(arch: str, seed: int, plain_kernel_path: bool):
         mismatches += r.output != ref
     emit({"phase": "tokens", "arch": cfg.name, "n_layers": cfg.n_layers,
           "layer_kinds": [cfg.layer_kind(i) for i in range(cfg.n_layers)],
+          "moe_layers": [i for i in range(cfg.n_layers)
+                         if cfg.layer_is_moe(i)],
+          "params": sum(t.numel() for t in _leaves(params)),
           "dtype": cfg.dtype, "requests": len(reqs),
           "tokens_each": n_new, "engine_launches": {
               k: v for k, v in stats.items() if k.endswith("_launches")},
           "mismatched_requests": mismatches})
+    del params
+    torch.cuda.empty_cache()
     if mismatches:
         raise AssertionError(f"{mismatches} requests differ from "
                              "single-stream greedy decoding")
@@ -478,7 +581,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from repro_torch.kernels import flash_attention, ops, slstm_scan
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ops, slstm_scan, ssm_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -489,19 +593,38 @@ def main() -> int:
         args.seed)
     slstm_timed = phase_slstm_check(
         slstm_scan.slstm_kernel, slstm_scan.slstm_scan_ref, args.seed)
-    flash_launches = phase_serve("phi4_mini_3_8b", args.seed, (32, 768),
-                                 "flash_attention", 32)
-    phase_tokens("phi4_mini_3_8b", args.seed, plain_kernel_path=False)
-    slstm_launches = phase_serve("xlstm_1_3b", args.seed, (32, 512),
-                                 "slstm_scan", 24, plain_iters=1)
-    phase_tokens("xlstm_1_3b", args.seed, plain_kernel_path=True)
+    ssm_timed = phase_ssm_check(ssm_scan.ssm_kernel, ssm_scan.ssm_scan_ref,
+                                args.seed)
+
+    def two_layers(arch):
+        return dataclasses.replace(get_config(arch), n_layers=2,
+                                   dtype="float32")
+
+    phi4 = phase_serve(get_config("phi4_mini_3_8b"), args.seed, (32, 768),
+                       {"flash_attention": 32})
+    phase_tokens(two_layers("phi4_mini_3_8b"), args.seed,
+                 plain_kernel_path=False)
+    xlstm = phase_serve(get_config("xlstm_1_3b"), args.seed, (32, 512),
+                        {"slstm_scan": 24}, plain_iters=1)
+    phase_tokens(two_layers("xlstm_1_3b"), args.seed, plain_kernel_path=True)
+    # Jamba at every published width: 16 of 32 layers (two groups of 8)
+    # fit one 80 GB card in bf16; each group has 7 Mamba and 1 attention
+    # layers
+    jamba_cfg = get_config("jamba_v01_52b")
+    jamba = phase_serve(dataclasses.replace(jamba_cfg, n_layers=16),
+                        args.seed, (32, 512),
+                        {"ssm_scan": 14, "flash_attention": 2}, plain_iters=1)
+    phase_tokens(dataclasses.replace(jamba_cfg, n_layers=8, dtype="float32"),
+                 args.seed, plain_kernel_path=False)
 
     rec = flash_timed[("phi4_S512", torch.bfloat16)]
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": str(flash_attention.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention.py:85",
-        "launches": flash_launches, "max_abs_err": rec["max_abs_err"],
+        "launches": phi4["flash_attention"],
+        "launches_jamba": jamba["flash_attention"],
+        "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
@@ -509,13 +632,23 @@ def main() -> int:
         "name": "slstm_scan", "route": "cuda",
         "source": str(slstm_scan.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/slstm_scan.py:76",
-        "launches": slstm_launches,
+        "launches": xlstm["slstm_scan"],
         "max_abs_err": slstm_timed["max_abs_err"],
         "ms": slstm_timed["kernel_ms"], "plain_ms": slstm_timed["plain_ms"],
         "bound_ms": slstm_timed["bound_ms"],
         "bound_by": slstm_timed["bound_by"], "library_ms": None,
         "library_note": LSTM_LIBRARY_NOTE,
-        "shape": "B=1 S=512 H=4 dh=512 bf16 pre (xLSTM 1.3B)"}]})
+        "shape": "B=1 S=512 H=4 dh=512 bf16 pre (xLSTM 1.3B)"}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": str(ssm_scan.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/ssm_scan.py:46",
+        "launches": jamba["ssm_scan"],
+        "max_abs_err": ssm_timed["max_abs_err"],
+        "ms": ssm_timed["kernel_ms"], "plain_ms": ssm_timed["plain_ms"],
+        "bound_ms": ssm_timed["bound_ms"],
+        "bound_by": ssm_timed["bound_by"], "library_ms": None,
+        "library_note": SSM_LIBRARY_NOTE,
+        "shape": "Bb=1 S=512 d=8192 N=16, u/B/C bf16, dt fp32 (Jamba)"}]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(OUT_LINES) + "\n")

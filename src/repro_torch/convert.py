@@ -4,9 +4,10 @@ The reference keeps parameters and caches as nested dicts of arrays
 (``embed/tok_embed``, ``stack/pos00/mixer/wq``, ``pos00/k`` ...). The port
 keeps the same keys with torch tensors at the leaves, so converted weights
 compare one for one. Leaves cross as numpy arrays and keep their dtype:
-the float32 leaves of a bfloat16 model (norm scales, the sLSTM gate and
-recurrent weights and biases, mLSTM's input/forget gate weights and skip
-scale, recurrent states) stay float32. bfloat16 goes through float32,
+the float32 leaves of a bfloat16 model (norm scales, the MoE ``router``,
+Mamba's ``a_log``, ``dt_bias`` and ``ssm_d``, the sLSTM gate and recurrent
+weights and biases, mLSTM's input/forget gate weights and skip scale,
+recurrent states) stay float32. bfloat16 goes through float32,
 which holds every bfloat16 value exactly, so the round trip
 ``to_numpy(to_torch(tree))`` returns the same values.
 """

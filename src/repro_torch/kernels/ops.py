@@ -11,8 +11,10 @@ import contextlib
 
 from repro_torch.kernels.flash_attention import flash_attention_ref, flash_kernel
 from repro_torch.kernels.slstm_scan import slstm_kernel, slstm_scan_ref
+from repro_torch.kernels.ssm_scan import ssm_kernel, ssm_scan_ref
 
-KERNELS = {"flash_attention": flash_kernel, "slstm_scan": slstm_kernel}
+KERNELS = {"flash_attention": flash_kernel, "slstm_scan": slstm_kernel,
+           "ssm_scan": ssm_kernel}
 _plain = {"on": False}
 
 
@@ -52,3 +54,11 @@ def slstm_scan(pre, r_all, c0, n0, m0, h0):
     if pre.is_cuda and not _plain["on"]:
         return slstm_kernel(pre, r_all, c0, n0, m0, h0)
     return slstm_scan_ref(pre, r_all, c0, n0, m0, h0)
+
+
+def ssm_scan(u, dt, A, B, C, D, h0=None):
+    """u, dt: [Bb,S,d]; A: [d,N]; B,C: [Bb,S,N]; D: [d]; h0: [Bb,d,N] or
+    None. Returns (y [Bb,S,d] in u's dtype, h_last [Bb,d,N] float32)."""
+    if u.is_cuda and not _plain["on"]:
+        return ssm_kernel(u, dt, A, B, C, D, h0=h0)
+    return ssm_scan_ref(u, dt, A, B, C, D, h0=h0)

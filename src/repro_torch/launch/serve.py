@@ -4,6 +4,8 @@
       --full --device cuda --requests 16 --lanes 8 --max-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_1_3b \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \\
+      --device cpu
 
 Without ``--full`` the arch's smoke config is served. The stats end with
 each kernel's launches in the run.

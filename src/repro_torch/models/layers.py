@@ -17,7 +17,10 @@ NEG_INF = -2.3819763e38  # large negative, safe in bfloat16
 
 
 def _normal(shape, scale, dtype, gen):
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    # scaled in place: one float32 temporary per leaf (7.5 GB for a
+    # full-width Jamba expert stack), not two
+    t = torch.randn(shape, generator=gen, device=gen.device)
+    return t.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ class Model:
                 cache_index=None, use_kernel: bool = False):
         """Returns (logits [B,S,padded_vocab], caches). Caches (k/v and
         recurrent states) are written in place. ``use_kernel`` sends
-        prefill attention and the sLSTM scan through ``kernels.ops``."""
+        prefill attention, the sLSTM scan and the selective scan through
+        ``kernels.ops``."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, frontend_embeds)
         B, S = tokens.shape

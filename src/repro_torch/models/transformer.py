@@ -3,14 +3,15 @@
 The parameter and cache layout is the reference's: ``{posNN: tree}`` with a
 leading ``n_groups`` axis on every leaf, so converted weights and caches
 compare one for one. Where the reference scans over groups, the port loops
-in Python. Attention (dense FFN) and xLSTM (mLSTM, sLSTM) layers are
-ported; Mamba and MoE layers raise ``NotImplementedError``.
+in Python. Every mixer kind is ported: attention, Mamba (``ssm``), mLSTM
+and sLSTM; attention and Mamba layers take an MoE block or a dense FFN.
+The MoE aux loss is a training quantity and is dropped here.
 
 Caches are written in place: attention writes its new keys and values into
 the k/v tensors it is given, and the recurrent layers copy their new state
-into the state tensors of the cache (``{posNN: {C, n, m, conv}}`` for
-mLSTM, ``{posNN: {c, n, m, h}}`` for sLSTM, each with the leading
-``n_groups`` axis).
+into the state tensors of the cache (``{posNN: {conv, h}}`` for Mamba,
+``{posNN: {C, n, m, conv}}`` for mLSTM, ``{posNN: {c, n, m, h}}`` for
+sLSTM, each with the leading ``n_groups`` axis).
 """
 from __future__ import annotations
 
@@ -20,28 +21,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm
 from repro_torch.models.layers import ffn_apply, ffn_init, rmsnorm, rmsnorm_init
 
-_NOT_PORTED = {
-    "ssm": "ROADMAP Queue 1 item 8 (Mamba / jamba)",
-    "moe": "ROADMAP Queue 1 item 7 (MoE)",
-}
+_MIXER_INIT = {"attn": attn.attn_init, "ssm": ssm_lib.ssm_init,
+               "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
 
 
 def _pos_name(p: int) -> str:
     return f"pos{p:02d}"
-
-
-def _check_ported(cfg: ModelConfig, layer_pos: int) -> str:
-    kind = cfg.layer_kind(layer_pos)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{kind} layers are not ported yet: {_NOT_PORTED[kind]}")
-    if cfg.layer_is_moe(layer_pos):
-        raise NotImplementedError(
-            f"MoE layers are not ported yet: {_NOT_PORTED['moe']}")
-    return kind
 
 
 def _index(tree, g: int):
@@ -54,16 +44,18 @@ def stack_init(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
     """Stacked params: {posNN: block params with leading n_groups dim}."""
     G, dev = cfg.n_groups, gen.device
     out = {}
-    mixer_init = {"attn": attn.attn_init, "mlstm": xlstm.mlstm_init,
-                  "slstm": xlstm.slstm_init}
     for p in range(cfg.resolved_scan_period):
-        kind = _check_ported(cfg, p)
+        kind = cfg.layer_kind(p)
         block = {"mixer_norm": rmsnorm_init(cfg.d_model, (G,), dev),
-                 "mixer": mixer_init[kind](gen, cfg, dtype, (G,))}
-        if kind == "attn" and cfg.d_ff > 0:
-            block["ffn_norm"] = rmsnorm_init(cfg.d_model, (G,), dev)
-            block["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
-                                    dtype, (G,))
+                 "mixer": _MIXER_INIT[kind](gen, cfg, dtype, (G,))}
+        if kind in ("attn", "ssm"):
+            if cfg.layer_is_moe(p):
+                block["ffn_norm"] = rmsnorm_init(cfg.d_model, (G,), dev)
+                block["moe"] = moe_lib.moe_init(gen, cfg, dtype, (G,))
+            elif cfg.d_ff > 0:
+                block["ffn_norm"] = rmsnorm_init(cfg.d_model, (G,), dev)
+                block["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                        dtype, (G,))
         out[_pos_name(p)] = block
     out["final_norm"] = rmsnorm_init(cfg.d_model, (), dev)
     return out
@@ -73,13 +65,16 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
                 cache: Optional[Dict] = None, cache_index=None,
                 use_kernel: bool = False):
     """Apply one block (its cache, if any, is written in place)."""
-    kind = _check_ported(cfg, layer_pos)
+    kind = cfg.layer_kind(layer_pos)
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
     if kind == "attn":
         out = attn.attn_apply(params["mixer"], h, positions, cfg, cache=cache,
                               cache_index=cache_index, use_kernel=use_kernel)
     else:
-        if kind == "mlstm":
+        if kind == "ssm":
+            out, state = ssm_lib.ssm_apply(params["mixer"], h, cfg,
+                                           state=cache, use_kernel=use_kernel)
+        elif kind == "mlstm":
             out, state = xlstm.mlstm_apply(params["mixer"], h, cfg,
                                            state=cache)
         else:
@@ -89,7 +84,10 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
             for key, value in state.items():
                 cache[key].copy_(value)
     x = x + out
-    if "ffn" in params:
+    if "moe" in params:
+        h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+        x = x + moe_lib.moe_apply(params["moe"], h, cfg)[0]
+    elif "ffn" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
         x = x + ffn_apply(params["ffn"], h, cfg.act)
     return x
@@ -115,15 +113,18 @@ def stack_apply(params, x, positions, cfg: ModelConfig,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device="cpu") -> Dict[str, Any]:
     """Stacked caches {posNN: tree with a leading n_groups axis}: attention
-    {k, v: [n_groups, B, L, Hkv, hd]}, or an xLSTM layer's recurrent state
-    (which does not grow with ``max_len``)."""
+    {k, v: [n_groups, B, L, Hkv, hd]}, or a Mamba or xLSTM layer's
+    recurrent state (which does not grow with ``max_len``)."""
     out = {}
     lead = (cfg.n_groups,)
     for p in range(cfg.resolved_scan_period):
-        kind = _check_ported(cfg, p)
+        kind = cfg.layer_kind(p)
         if kind == "attn":
             cache = attn.init_cache(cfg, batch, max_len, dtype, device,
                                     lead=lead)
+        elif kind == "ssm":
+            cache = ssm_lib.init_ssm_state(cfg, batch, dtype, device,
+                                           lead=lead)
         else:
             cache = xlstm.init_xlstm_state(cfg, batch, kind, dtype, device,
                                            lead=lead)

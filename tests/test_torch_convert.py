@@ -28,11 +28,13 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "gemma_2b", "xlstm_1_3b"])
+@pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "gemma_2b", "xlstm_1_3b",
+                                  "jamba_v01_52b", "arctic_480b"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_param_round_trip_is_exact(arch, dtype):
     """Same keys, shapes, dtypes (the float32 leaves of a bf16 model stay
-    float32) and values after the round trip."""
+    float32: Jamba's router, a_log, dt_bias and ssm_d among them) and
+    values after the round trip."""
     _, jp, _, pp = models(arch, dtype)
     ref = dict(_leaves(to_numpy(jp)))
     got = dict(_leaves(pp))
@@ -102,7 +104,9 @@ def test_config_copy_matches_reference(arch, size):
 @pytest.mark.parametrize("arch", ["phi4_mini_3_8b", "phi4-mini-3.8b",
                                   "gemma_2b", "gemma-2b", "chatglm3_6b",
                                   "codeqwen15_7b", "internvl2_2b",
-                                  "musicgen_large", "xlstm_1_3b"])
+                                  "musicgen_large", "xlstm_1_3b",
+                                  "jamba_v01_52b", "granite-moe-1b-a400m",
+                                  "granite_moe_1b_a400m", "arctic_480b"])
 def test_ported_config_files_match_reference(arch):
     for get, port_get in ((get_config, port_configs.get_config),
                           (get_smoke_config, port_configs.get_smoke_config)):
@@ -115,7 +119,7 @@ def test_every_port_config_file_matches_reference():
     reference's, CONFIG and SMOKE_CONFIG field for field."""
     names = sorted(p.stem for p in PORT_CONFIG_DIR.glob("*.py")
                    if p.stem not in ("__init__", "base"))
-    assert len(names) == 7, names
+    assert len(names) == 10, names
     for arch in names:
         assert arch in ARCH_IDS, arch
         for get, port_get in ((get_config, port_configs.get_config),
@@ -130,3 +134,36 @@ def test_phi4_full_size_counts():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim, cfg.d_ff) == (32, 3072, 24, 8, 128, 8192)
     assert cfg.padded_vocab == 200192 and cfg.n_groups == 32
+
+
+def test_jamba_float32_leaves_of_a_bf16_model():
+    """The MoE router and Mamba's a_log, dt_bias and ssm_d stay float32
+    in a bf16 Jamba, on both sides and after the round trip."""
+    _, jp, _, pp = models("jamba_v01_52b", "bfloat16")
+    got = dict(_leaves(pp))
+    f32_leaves = {k for k, t in got.items() if t.dtype == torch.float32}
+    for key in ("stack/pos01/moe/router", "stack/pos00/mixer/a_log",
+                "stack/pos00/mixer/dt_bias", "stack/pos00/mixer/ssm_d"):
+        assert key in f32_leaves, key
+    assert got["stack/pos01/moe/experts/w_up"].dtype == torch.bfloat16
+    assert got["stack/pos00/mixer/in_proj"].dtype == torch.bfloat16
+
+
+def test_jamba_state_round_trip_is_exact():
+    """Jamba's caches: {conv, h} for Mamba positions (bf16 conv, float32
+    h), {k, v} at the attention position."""
+    cfg = get_smoke_config("jamba_v01_52b")
+    rng = np.random.default_rng(2)
+    caches = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
+        init_caches(cfg, 2, 16))
+    ref = dict(_leaves(to_numpy(caches)))
+    tree = convert.to_torch(to_numpy(caches))
+    got = dict(_leaves(convert.to_numpy(tree)))
+    assert ref.keys() == got.keys()
+    assert set(tree["pos00"]) == {"conv", "h"}
+    assert set(tree["pos04"]) == {"k", "v"}
+    assert tree["pos00"]["conv"].dtype == torch.bfloat16
+    assert tree["pos00"]["h"].dtype == torch.float32
+    for key, a in ref.items():
+        np.testing.assert_array_equal(got[key], a.astype(np.float32))

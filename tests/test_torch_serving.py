@@ -1,6 +1,8 @@
 """The port's continuous-batching engine against the JAX engine, token for
-token in float32, on every scenario of test_serving.py and on xLSTM (the
-recurrent caches); and the trimmed scheduler copies it admits through."""
+token in float32, on every scenario of test_serving.py, on xLSTM (the
+recurrent caches) and on Jamba (Mamba states, attention caches and MoE
+capacity shared by the lanes); and the trimmed scheduler copies it admits
+through."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -26,6 +28,11 @@ def setup():
 @pytest.fixture(scope="module")
 def xlstm_setup():
     return models("xlstm_1_3b", "float32")
+
+
+@pytest.fixture(scope="module")
+def jamba_setup():
+    return models("jamba_v01_52b", "float32")
 
 
 def _greedy_ref(model, params, prompt, n_new, max_len, use_kernel=False):
@@ -195,3 +202,25 @@ def test_xlstm_kernel_path_matches_reference_prefill(xlstm_setup):
         assert r.output[0] == int(jnp.argmax(lj[0]))
         assert r.output == _greedy_ref(pm, pp, r.prompt, 4, 32,
                                        use_kernel=True)
+
+
+JAMBA_PROMPT_LENS = (5, 64, 1, 23, 40, 9)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_jamba_engine_matches_reference_engine(jamba_setup, use_kernel):
+    """Jamba at the stock capacity factor, 4 lanes, ragged prompts of 1 to
+    64 tokens: the port's engine equals the JAX engine token for token.
+    Both batch the same lanes (idle lanes decode token 0), so the MoE
+    layers of a decode step route the same tokens and drop the same slots;
+    a prefill's group is its prompt. With use_kernel the Mamba prefills go
+    through ops.ssm_scan (the plain version on the CPU) and attention
+    through ops.flash_attention."""
+    _, _, pm, _ = jamba_setup
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, pm.cfg.vocab_size, n).tolist()
+               for n in JAMBA_PROMPT_LENS]
+    _, stats = _serve_both(jamba_setup, prompts, lanes=4, max_len=80,
+                           use_kernel=use_kernel, max_new_tokens=6)
+    assert stats["ssm_scan_launches"] == 0     # CPU: the plain version
+    assert stats["decode_steps"] > 0

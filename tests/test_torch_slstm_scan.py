@@ -143,4 +143,5 @@ def test_plain_versions_switch_restores_dispatch():
             assert ops._plain["on"]
             raise KeyError
     assert not ops._plain["on"]
-    assert ops.launch_counts().keys() == {"flash_attention", "slstm_scan"}
+    assert ops.launch_counts().keys() == {"flash_attention", "slstm_scan",
+                                          "ssm_scan"}
