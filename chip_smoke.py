@@ -6,8 +6,8 @@
 Phases, each printing one JSON line (and failing the run on any error):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build the kernels from src/repro_torch/kernels/csrc, one nvcc each,
-     all started together: flash attention (K1), the sLSTM scan (K4) and
-     the selective scan (K3);
+     all started together: flash attention (K1), the sLSTM scan (K4), the
+     selective scan (K3) and the grouped expert GEMM (K2);
   3. hold K1 against its plain PyTorch version on the card over head dims
      16..256, MHA/GQA/MQA, ragged S, window and softcap, and time it at
      Phi-4-mini's prefill shapes beside its plain version, torch's
@@ -19,6 +19,11 @@ Phases, each printing one JSON line (and failing the run on any error):
      an initial state, ragged S, a d that no block divides, the model's
      mixed dtypes (dt float32) and Jamba's full width, each in float32 and
      in bf16, and time it at full width;
+  5a. hold K2 against its plain version over the reference test's shapes,
+     ragged M, N and K, M = 1 and 4, Granite's and Jamba's prefill shapes
+     and Jamba's decode shape, in float32 and bf16, and time it at
+     Jamba's prefill and decode shapes and Granite's beside its plain
+     version, torch.bmm and the card's bound;
   6. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
      the continuous-batching engine, check that every prefill went through
      K1, and break a prefill and a decode step down;
@@ -28,9 +33,14 @@ Phases, each printing one JSON line (and failing the run on any error):
      sLSTM prefill through K4);
   9. the xLSTM token check (one mLSTM and one sLSTM layer at full width,
      float32; the single stream runs K4's plain version);
+  9a. the same serving run and breakdown for Granite-MoE 1B-A400M at full
+     width and all 24 layers (every MoE prefill product through K2, every
+     attention prefill through K1), then its token check at all 24 layers
+     in float32 against single-stream greedy decoding through the plain
+     path;
  10. the same serving run and breakdown for Jamba at every published width,
      cut to 16 of its 32 layers (every Mamba prefill through K3, every
-     attention prefill through K1);
+     attention prefill through K1, every MoE prefill product through K2);
  11. the Jamba token check: one group of 8 layers (7 Mamba, 1 attention,
      4 MoE) at full width in float32, 3 lanes, against single-stream greedy
      decoding through the plain path.
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -69,6 +80,16 @@ LSTM_LIBRARY_NOTE = ("no single PyTorch call computes the sLSTM scan: "
                      "torch.nn.LSTM has other gates and no stabiliser")
 SSM_LIBRARY_NOTE = ("no single PyTorch call computes the selective scan: "
                     "its decay depends on the input at every step")
+# K2's tolerances. bf16: both sum the exact bf16 x bf16 products in
+# float32 and round the sum to bf16 once, so they differ by at most one
+# bf16 ulp (2^-8 relative) where the two float32 sums straddle a rounding
+# boundary: 2e-2. float32: sums of up to 14,336 products of N(0,1) x
+# N(0, K^-1/2) terms, O(1) results, in another order: 1e-4.
+GEMM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+GEMM_LIBRARY = "torch.bmm(x, w) at the same shape and dtype"
+# weights are rotated over copies of at least this many bytes in all when
+# timing, so that every call reads them from HBM, as a model's layers do
+L2_FLUSH_BYTES = 128 << 20
 
 OUT_LINES = []
 
@@ -376,6 +397,91 @@ def phase_ssm_check(ssm_kernel, ssm_scan_ref, seed: int):
     return timed
 
 
+def gemm_bound(E, M, K, N, dtype):
+    """Least time (ms) of x [E,M,K] @ w [E,K,N]: bytes (x, w and out once
+    each) over HBM rate vs 2 E M K N operations over the dtype's peak."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * (E * M * K + E * K * N + E * M * N)
+    flops = 2 * E * M * K * N
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def phase_gemm_check(expert_kernel, expert_gemm_ref, seed: int):
+    """K2 vs its plain version on the card; times at the main path's
+    shapes (Jamba's prefill and decode, Granite's prefill) beside
+    torch.bmm."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    # (label, E, M, K, N); the model's capacity is round(G k 1.25 / E):
+    # Jamba 80 and Granite 160 for a 512-token prompt, 4 for an 8-lane
+    # decode step
+    cases = [("ref_2x64x128x64", 2, 64, 128, 64),
+             ("ref_4x128x256x128", 4, 128, 256, 128),
+             ("ref_8x64x64x192", 8, 64, 64, 192),
+             ("ragged_m70_k100_n50", 3, 70, 100, 50),
+             ("ragged_m33_k77_n130", 2, 33, 77, 130),
+             ("ragged_n33", 2, 17, 64, 33),
+             ("m1", 4, 1, 256, 384),
+             ("m4", 4, 4, 512, 256),
+             ("granite_up", 32, 160, 1024, 512),
+             ("granite_down", 32, 160, 512, 1024),
+             ("jamba_up", 16, 80, 4096, 14336),
+             ("jamba_down", 16, 80, 14336, 4096),
+             ("jamba_decode_up", 16, 4, 4096, 14336)]
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, E, M, K, N in cases:
+            x = torch.randn((E, M, K), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((E, K, N), generator=gen, device="cuda")
+                 * K ** -0.5).to(dtype)
+            out = expert_kernel(x, w)
+            torch.cuda.synchronize()
+            exp = expert_gemm_ref(x, w)
+            err = (out.float() - exp.float()).abs().max().item()
+            tol = GEMM_TOL[dtype]
+            ok = (out.dtype == dtype and out.shape == (E, M, N)
+                  and bool(torch.isfinite(out).all())
+                  and torch.allclose(out.float(), exp.float(), atol=tol,
+                                     rtol=tol))
+            rec = {"phase": "gemm_check", "case": label,
+                   "dtype": str(dtype).split(".")[1], "E": E, "M": M, "K": K,
+                   "N": N, "max_abs_err": err, "tol": tol, "ok": ok}
+            if label.startswith("jamba_up"):
+                rec["tol_reason"] = (
+                    "bf16: the same exact products summed in float32 in "
+                    "another order, rounded to bf16 once, one ulp (2^-8) "
+                    "apart at most; float32: another summation order over "
+                    "K terms")
+            if dtype == torch.bfloat16 and label in (
+                    "jamba_up", "jamba_down", "jamba_decode_up",
+                    "granite_up", "granite_down"):
+                del out, exp
+                copies = max(1, -(-L2_FLUSH_BYTES
+                                  // (w.numel() * w.element_size())))
+                ws = itertools.cycle([w] + [w.clone()
+                                            for _ in range(copies - 1)])
+                rec["weight_copies"] = copies
+                rec["kernel_ms"] = cuda_ms(lambda: expert_kernel(x, next(ws)))
+                rec["plain_ms"] = cuda_ms(
+                    lambda: expert_gemm_ref(x, next(ws)), iters=5, warmup=1)
+                rec["library_ms"] = cuda_ms(lambda: torch.bmm(x, next(ws)))
+                (rec["bound_ms"], rec["bound_by"], rec["bound_bytes"],
+                 rec["bound_flops"]) = gemm_bound(E, M, K, N, dtype)
+                rec["kernel_bytes_per_s"] = rec["bound_bytes"] / (
+                    rec["kernel_ms"] * 1e-3)
+                timed[label] = rec
+                del ws
+            rec["launches_so_far"] = expert_kernel.launches
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"expert GEMM kernel disagrees with its "
+                                     f"plain version: {rec}")
+            del x, w
+    torch.cuda.empty_cache()
+    return timed
+
+
 def phase_serve(cfg, seed: int, lens_range, per_request: dict,
                 plain_iters: int = 3):
     """Serve 16 requests of the full-width model ``cfg`` on 8 lanes; every
@@ -498,6 +604,7 @@ def phase_breakdown(model, params, engine, rng, plain_iters: int):
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    moe_block_times(model, params, rec)
     rec["profiled_steps"] = steps
     rec["profiled_wall_ms"] = wall_ms
     rec["device_busy_ms"] = device_ms
@@ -509,6 +616,30 @@ def phase_breakdown(model, params, engine, rng, plain_iters: int):
          e.self_device_time_total / 1e3 / steps, "calls_per_step":
          e.count / steps} for e in top]
     emit(rec)
+
+
+def moe_block_times(model, params, rec) -> None:
+    """Device time of one MoE block on a 512-token prefill's input, its
+    expert products through K2 and through the einsums (the path before
+    K2), and that difference over all the model's MoE layers."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import _index, _pos_name
+
+    cfg = model.cfg
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.layer_is_moe(i)]
+    if not moe_layers:
+        return
+    block = _index(params["stack"][_pos_name(moe_layers[0])], 0)["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, rec["prefill_S"], cfg.d_model), generator=gen,
+                    device="cuda").to(block["experts"]["w_up"].dtype)
+    for kernel in (True, False):
+        rec[f"moe_block_ms_{'kernel' if kernel else 'einsum'}"] = cuda_ms(
+            lambda: moe_lib.moe_apply(block, x, cfg, use_kernel=kernel),
+            iters=10)
+    rec["moe_layers"] = len(moe_layers)
+    rec["prefill_k2_minus_einsum_ms"] = len(moe_layers) * (
+        rec["moe_block_ms_kernel"] - rec["moe_block_ms_einsum"])
 
 
 def phase_tokens(cfg, seed: int, plain_kernel_path: bool):
@@ -582,7 +713,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, ops, slstm_scan, ssm_scan
+    from repro_torch.kernels import (expert_gemm, flash_attention, ops,
+                                     slstm_scan, ssm_scan)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -595,6 +727,8 @@ def main() -> int:
         slstm_scan.slstm_kernel, slstm_scan.slstm_scan_ref, args.seed)
     ssm_timed = phase_ssm_check(ssm_scan.ssm_kernel, ssm_scan.ssm_scan_ref,
                                 args.seed)
+    gemm_timed = phase_gemm_check(expert_gemm.expert_kernel,
+                                  expert_gemm.expert_gemm_ref, args.seed)
 
     def two_layers(arch):
         return dataclasses.replace(get_config(arch), n_layers=2,
@@ -607,13 +741,20 @@ def main() -> int:
     xlstm = phase_serve(get_config("xlstm_1_3b"), args.seed, (32, 512),
                         {"slstm_scan": 24}, plain_iters=1)
     phase_tokens(two_layers("xlstm_1_3b"), args.seed, plain_kernel_path=True)
+    # Granite-MoE at full width and depth: every layer attention + MoE
+    granite_cfg = get_config("granite_moe_1b_a400m")
+    granite = phase_serve(granite_cfg, args.seed, (32, 512),
+                          {"expert_gemm": 72, "flash_attention": 24})
+    phase_tokens(dataclasses.replace(granite_cfg, dtype="float32"),
+                 args.seed, plain_kernel_path=False)
     # Jamba at every published width: 16 of 32 layers (two groups of 8)
     # fit one 80 GB card in bf16; each group has 7 Mamba and 1 attention
     # layers
     jamba_cfg = get_config("jamba_v01_52b")
     jamba = phase_serve(dataclasses.replace(jamba_cfg, n_layers=16),
                         args.seed, (32, 512),
-                        {"ssm_scan": 14, "flash_attention": 2}, plain_iters=1)
+                        {"ssm_scan": 14, "flash_attention": 2,
+                         "expert_gemm": 24}, plain_iters=1)
     phase_tokens(dataclasses.replace(jamba_cfg, n_layers=8, dtype="float32"),
                  args.seed, plain_kernel_path=False)
 
@@ -648,7 +789,26 @@ def main() -> int:
         "bound_ms": ssm_timed["bound_ms"],
         "bound_by": ssm_timed["bound_by"], "library_ms": None,
         "library_note": SSM_LIBRARY_NOTE,
-        "shape": "Bb=1 S=512 d=8192 N=16, u/B/C bf16, dt fp32 (Jamba)"}]})
+        "shape": "Bb=1 S=512 d=8192 N=16, u/B/C bf16, dt fp32 (Jamba)"}, {
+        "name": "expert_gemm", "route": "cuda",
+        "source": str(expert_gemm.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/kernels/moe_gemm.py:38",
+        "launches": granite["expert_gemm"],
+        "launches_jamba": jamba["expert_gemm"],
+        "max_abs_err": gemm_timed["jamba_up"]["max_abs_err"],
+        "ms": gemm_timed["jamba_up"]["kernel_ms"],
+        "plain_ms": gemm_timed["jamba_up"]["plain_ms"],
+        "bound_ms": gemm_timed["jamba_up"]["bound_ms"],
+        "bound_by": gemm_timed["jamba_up"]["bound_by"],
+        "library_ms": gemm_timed["jamba_up"]["library_ms"],
+        "library_note": GEMM_LIBRARY,
+        "shape": "E=16 M=80 K=4096 N=14336 bf16 (Jamba 512-token prefill, "
+                 "up/gate)",
+        "other_shapes": {label: {key: gemm_timed[label][key] for key in (
+            "E", "M", "K", "N", "max_abs_err", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+            for label in ("jamba_down", "jamba_decode_up", "granite_up",
+                          "granite_down")}}]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(OUT_LINES) + "\n")

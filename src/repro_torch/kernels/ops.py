@@ -9,12 +9,13 @@ from __future__ import annotations
 
 import contextlib
 
+from repro_torch.kernels.expert_gemm import expert_gemm_ref, expert_kernel
 from repro_torch.kernels.flash_attention import flash_attention_ref, flash_kernel
 from repro_torch.kernels.slstm_scan import slstm_kernel, slstm_scan_ref
 from repro_torch.kernels.ssm_scan import ssm_kernel, ssm_scan_ref
 
 KERNELS = {"flash_attention": flash_kernel, "slstm_scan": slstm_kernel,
-           "ssm_scan": ssm_kernel}
+           "ssm_scan": ssm_kernel, "expert_gemm": expert_kernel}
 _plain = {"on": False}
 
 
@@ -62,3 +63,10 @@ def ssm_scan(u, dt, A, B, C, D, h0=None):
     if u.is_cuda and not _plain["on"]:
         return ssm_kernel(u, dt, A, B, C, D, h0=h0)
     return ssm_scan_ref(u, dt, A, B, C, D, h0=h0)
+
+
+def expert_gemm(x, w):
+    """x: [E,M,K]; w: [E,K,N] -> [E,M,N] in x's dtype, summed in float32."""
+    if x.is_cuda and not _plain["on"]:
+        return expert_kernel(x, w)
+    return expert_gemm_ref(x, w)

@@ -6,9 +6,13 @@
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v01_52b \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite_moe_1b_a400m --full --device cuda
 
-Without ``--full`` the arch's smoke config is served. The stats end with
-each kernel's launches in the run.
+Without ``--full`` the arch's smoke config is served. Granite-MoE 1B-A400M
+serves at full width and depth on one card, every MoE prefill product in
+the grouped expert GEMM. The stats end with each kernel's launches in the
+run.
 """
 from __future__ import annotations
 

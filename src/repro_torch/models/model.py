@@ -42,8 +42,8 @@ class Model:
                 cache_index=None, use_kernel: bool = False):
         """Returns (logits [B,S,padded_vocab], caches). Caches (k/v and
         recurrent states) are written in place. ``use_kernel`` sends
-        prefill attention, the sLSTM scan and the selective scan through
-        ``kernels.ops``."""
+        prefill attention, the sLSTM scan, the selective scan and the MoE
+        expert products through ``kernels.ops``."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, frontend_embeds)
         B, S = tokens.shape
@@ -74,7 +74,9 @@ class Model:
 
     def decode_step(self, params, token, caches, cache_index):
         """token: [B,1]; cache_index: an int or a [B] tensor (position to
-        write). Returns (logits [B,padded_vocab], caches)."""
+        write). Returns (logits [B,padded_vocab], caches). Decode takes the
+        plain paths: every kernel of the port is prefill-only, so the MoE
+        expert products of a decode step stay ``torch.einsum``."""
         logits, caches = self.forward(params, token, caches=caches,
                                       cache_index=cache_index)
         return logits[:, -1], caches

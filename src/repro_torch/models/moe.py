@@ -6,7 +6,10 @@ which (token, k) slots are dropped, and the order in which tokens take the
 capacity of an expert, are the reference's. Every expert computes its
 whole capacity (the reference's einsum form), so an MoE layer reads all
 experts' weights whatever the routing. An arctic-style parallel
-dense-residual FFN is supported.
+dense-residual FFN is supported. With ``use_kernel`` the three expert
+products go through ``kernels.ops.expert_gemm`` (the hand-written grouped
+GEMM on CUDA tensors, its plain version on CPU tensors); the function is
+the same.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal, ffn_apply, ffn_init
 
 # Tokens per dispatch group: bounds the [G, E, C] one-hot cost; the group
@@ -92,9 +96,25 @@ def route(router, xg, cfg: ModelConfig):
     return probs, gate_vals, gate_idx, pos, keep, capacity
 
 
-def moe_apply(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar float32)."""
+def _expert_einsum(ex_in, w):
+    """ex_in [n,E,C,d_in] @ w [E,d_in,d_out] per expert -> [n,E,C,d_out]:
+    the reference's einsum."""
+    return torch.einsum("necd,edf->necf", ex_in, w)
+
+
+def _expert_gemm(ex_in, w):
+    """The same product through ``ops.expert_gemm``, with ex_in laid out as
+    [E, n·C, d_in] (a view for n = 1)."""
+    n, E, C, _ = ex_in.shape
+    y = ops.expert_gemm(ex_in.transpose(0, 1).reshape(E, n * C, -1), w)
+    return y.reshape(E, n, C, -1).transpose(0, 1)
+
+
+def moe_apply(params, x, cfg: ModelConfig,
+              use_kernel: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar float32).
+    ``use_kernel`` sends the up, gate and down products through
+    ``ops.expert_gemm``; otherwise they are the reference's einsums."""
     m = cfg.moe
     B, S, d = x.shape
     E = m.n_experts
@@ -123,11 +143,10 @@ def moe_apply(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     # expert computation: every expert over its whole capacity
     ex_in = torch.einsum("ngd,ngec->necd", xg, dispatch)
     w = params["experts"]
-    up = torch.einsum("necd,edf->necf", ex_in, w["w_up"])
-    gate = (torch.einsum("necd,edf->necf", ex_in, w["w_gate"])
-            if "w_gate" in w else None)
-    h = _activate(gate, up, cfg.act)
-    ex_out = torch.einsum("necf,efd->necd", h, w["w_down"])
+    product = _expert_gemm if use_kernel else _expert_einsum
+    up = product(ex_in, w["w_up"])
+    gate = product(ex_in, w["w_gate"]) if "w_gate" in w else None
+    ex_out = product(_activate(gate, up, cfg.act), w["w_down"])
     out = torch.einsum("necd,ngec->ngd", ex_out, combine).reshape(B, S, d)
     if m.dense_residual:
         out = out + ffn_apply(params["dense"], x, cfg.act)

@@ -86,7 +86,8 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
     x = x + out
     if "moe" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + moe_lib.moe_apply(params["moe"], h, cfg)[0]
+        x = x + moe_lib.moe_apply(params["moe"], h, cfg,
+                                  use_kernel=use_kernel)[0]
     elif "ffn" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
         x = x + ffn_apply(params["ffn"], h, cfg.act)

@@ -12,10 +12,12 @@ Prefill runs one request at a time into a fresh one-lane cache that is then
 copied into the lane: k/v for attention layers, the recurrent states for
 Mamba and xLSTM layers. With ``use_kernel`` (the default) prefill attention
 goes through ``kernels.ops.flash_attention``, the sLSTM recurrence through
-``kernels.ops.slstm_scan`` and the Mamba recurrence through
-``kernels.ops.ssm_scan``: the hand-written kernels on CUDA tensors, their
-plain versions on CPU tensors. ``use_kernel=False`` runs the model's plain
-paths, as the reference engine does.
+``kernels.ops.slstm_scan``, the Mamba recurrence through
+``kernels.ops.ssm_scan`` and the MoE expert products through
+``kernels.ops.expert_gemm``: the hand-written kernels on CUDA tensors,
+their plain versions on CPU tensors. Decode steps take the plain paths.
+``use_kernel=False`` runs the model's plain paths, as the reference engine
+does.
 
 Idle lanes decode token 0 at their last position, as in the reference
 engine; their results are dropped. In MoE layers those tokens take part in

@@ -27,7 +27,7 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_sources():
     assert len(PORT_FILES) >= 10
-    for name in ("flash_attention", "slstm_scan", "ssm_scan"):
+    for name in ("flash_attention", "slstm_scan", "ssm_scan", "expert_gemm"):
         assert (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").exists()
 
 

@@ -247,6 +247,30 @@ def test_moe_and_hybrid_forward_bf16_matches_reference(arch):
     assert (lt.argmax(-1) == l32.argmax(-1))[clear].all()
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "jamba_v01_52b"])
+@pytest.mark.parametrize("kernel", [False, True])
+def test_moe_prefill_matches_reference(arch, kernel):
+    """MoE prefill in float32 at the stock capacity factor, with the expert
+    products in ops.expert_gemm (kernel: its plain version on the CPU, with
+    flash attention's and the selective scan's) or the einsums: logits and
+    every cache leaf against the reference with use_pallas False and
+    True."""
+    jm, jp, pm, pp = models(arch, "float32")
+    toks = _tokens(jm.cfg, (1, 13), 2)
+    lt, ct = pm.prefill(pp, torch.from_numpy(toks), max_len=16,
+                        use_kernel=kernel)
+    for use_pallas in (False, True):
+        lj, cj = jm.prefill(jp, jnp.asarray(toks), max_len=16,
+                            use_pallas=use_pallas)
+        _close(lt, lj, "float32")
+        assert ct.keys() == cj.keys()
+        for name in cj:
+            for key in cj[name]:
+                np.testing.assert_allclose(
+                    f32(ct[name][key]), f32(cj[name][key]),
+                    atol=CACHE_TOL["float32"], rtol=TOL["float32"])
+
+
 def test_cuda_request_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

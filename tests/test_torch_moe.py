@@ -147,3 +147,91 @@ def test_group_size_must_divide_the_tokens():
     x = torch.zeros((1, 300, cfg.d_model))
     with pytest.raises(ValueError, match="300 tokens.*256"):
         tmoe.moe_apply(tp, x, port_config(cfg))
+
+
+# --------------------------------------------- the expert products in K2
+@pytest.mark.parametrize("cf,S", [(32.0, 8), (0.25, 64), (8.0, 8),
+                                  (1.25, 16)])
+def test_moe_kernel_path_matches_reference(cf, S):
+    """use_kernel=True (the three expert products through ops.expert_gemm,
+    its plain version on the CPU) at test_moe.py's capacity factors and the
+    stock 1.25: the reference's outputs and aux loss, and the same slots
+    dropped (a token whose every slot is dropped gets exactly zero)."""
+    cfg = _cfg(capacity_factor=cf)
+    jp, tp, x = _setup(cfg, S)
+    oj, aj = jmoe.moe_apply(jp, jnp.asarray(x), cfg)
+    ot, at = tmoe.moe_apply(tp, torch.from_numpy(x), port_config(cfg),
+                            use_kernel=True)
+    np.testing.assert_allclose(f32(ot), f32(oj), atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(float(at), float(aj), rtol=1e-6)
+    _, keep = _reference_slots(jp, x, cfg)
+    gone = ~keep.any(axis=1)
+    if cf == 0.25:
+        assert gone.any()
+    assert (f32(ot)[0, gone] == 0).all()
+
+
+def test_moe_kernel_path_matches_reference_bf16():
+    """bf16 activations and experts through ops.expert_gemm: the reference
+    tests' 2e-2, as the einsum path."""
+    cfg = dataclasses.replace(_cfg(capacity_factor=8.0), dtype="bfloat16")
+    jp, tp, x = _setup(cfg, 8)
+    oj, _ = jmoe.moe_apply(jp, jnp.asarray(x, jnp.bfloat16), cfg)
+    ot, _ = tmoe.moe_apply(tp, torch.from_numpy(x).to(torch.bfloat16),
+                           port_config(cfg), use_kernel=True)
+    assert ot.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(ot), f32(oj), atol=2e-2, rtol=2e-2)
+
+
+def _spy(monkeypatch):
+    calls = []
+    real = tmoe.ops.expert_gemm
+
+    def spy(x, w):
+        calls.append((tuple(x.shape), tuple(w.shape)))
+        return real(x, w)
+
+    monkeypatch.setattr(tmoe.ops, "expert_gemm", spy)
+    return calls
+
+
+@pytest.mark.parametrize("act,per_layer", [("swiglu", 3), ("gelu", 2)])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_expert_products_go_through_ops_only_with_use_kernel(
+        monkeypatch, act, per_layer, use_kernel):
+    """up, gate and down (up and down without a gate) each call
+    ops.expert_gemm once, on [E, n·C, d_in]; use_kernel=False never does.
+    The output is the reference's either way."""
+    cfg = dataclasses.replace(_cfg(capacity_factor=1.25), act=act)
+    jp, tp, x = _setup(cfg, 16)
+    assert ("w_gate" in tp["experts"]) == (act == "swiglu")
+    calls = _spy(monkeypatch)
+    ot, _ = tmoe.moe_apply(tp, torch.from_numpy(x), port_config(cfg),
+                           use_kernel=use_kernel)
+    oj, _ = jmoe.moe_apply(jp, jnp.asarray(x), cfg)
+    np.testing.assert_allclose(f32(ot), f32(oj), atol=F32_TOL, rtol=F32_TOL)
+    E, d, dff = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    C = 10                       # round(16 * 2 * 1.25 / 4)
+    want = [((E, C, d), (E, d, dff))] * (per_layer - 1) + [
+        ((E, C, dff), (E, dff, d))]
+    assert calls == (want if use_kernel else [])
+
+
+@pytest.mark.parametrize("arch,moe_layers", [("granite_moe_1b_a400m", 2),
+                                             ("jamba_v01_52b", 4)])
+def test_prefill_sends_every_moe_layer_through_ops(monkeypatch, arch,
+                                                   moe_layers):
+    """A whole-model prefill with use_kernel makes 3 expert_gemm calls per
+    MoE layer (granite's smoke config: every layer; jamba's: every other
+    of 8), a decode step none."""
+    from torch_parity import models
+
+    _, _, pm, pp = models(arch, "float32")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, pm.cfg.vocab_size, (1, 9)))
+    calls = _spy(monkeypatch)
+    _, caches = pm.prefill(pp, toks, max_len=12, use_kernel=True)
+    assert len(calls) == 3 * moe_layers
+    pm.decode_step(pp, toks[:, :1], caches, 9)
+    pm.prefill(pp, toks, max_len=12)
+    assert len(calls) == 3 * moe_layers

@@ -1,7 +1,8 @@
 """The port's continuous-batching engine against the JAX engine, token for
 token in float32, on every scenario of test_serving.py, on xLSTM (the
-recurrent caches) and on Jamba (Mamba states, attention caches and MoE
-capacity shared by the lanes); and the trimmed scheduler copies it admits
+recurrent caches), on Jamba (Mamba states, attention caches and MoE
+capacity shared by the lanes) and on Granite-MoE (an MoE on every layer);
+and the trimmed scheduler copies it admits
 through."""
 import pytest
 
@@ -33,6 +34,11 @@ def xlstm_setup():
 @pytest.fixture(scope="module")
 def jamba_setup():
     return models("jamba_v01_52b", "float32")
+
+
+@pytest.fixture(scope="module")
+def granite_setup():
+    return models("granite_moe_1b_a400m", "float32")
 
 
 def _greedy_ref(model, params, prompt, n_new, max_len, use_kernel=False):
@@ -224,3 +230,27 @@ def test_jamba_engine_matches_reference_engine(jamba_setup, use_kernel):
                            use_kernel=use_kernel, max_new_tokens=6)
     assert stats["ssm_scan_launches"] == 0     # CPU: the plain version
     assert stats["decode_steps"] > 0
+    assert stats["expert_gemm_launches"] == 0  # CPU: the plain version
+
+
+GRANITE_PROMPT_LENS = (7, 30, 1, 64, 12)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_granite_engine_matches_reference_engine(granite_setup, use_kernel):
+    """Granite-MoE (top-4 of 8 experts on every layer of the smoke config)
+    at the stock capacity factor, 3 lanes, ragged prompts: the port's
+    engine equals the JAX engine token for token, with the prefill's expert
+    products through ops.expert_gemm (its plain version on the CPU) or the
+    einsums, and equals single-stream greedy decoding."""
+    _, _, pm, pp = granite_setup
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, pm.cfg.vocab_size, n).tolist()
+               for n in GRANITE_PROMPT_LENS]
+    reqs, stats = _serve_both(granite_setup, prompts, lanes=3, max_len=80,
+                              use_kernel=use_kernel, max_new_tokens=5)
+    assert stats["expert_gemm_launches"] == 0  # CPU: the plain version
+    assert stats["flash_attention_launches"] == 0
+    for r in reqs:
+        assert r.output == _greedy_ref(pm, pp, r.prompt, 5, 80,
+                                       use_kernel=use_kernel)

@@ -144,4 +144,4 @@ def test_plain_versions_switch_restores_dispatch():
             raise KeyError
     assert not ops._plain["on"]
     assert ops.launch_counts().keys() == {"flash_attention", "slstm_scan",
-                                          "ssm_scan"}
+                                          "ssm_scan", "expert_gemm"}
