@@ -7,11 +7,18 @@ Phases, each printing one JSON line (and failing the run on any error):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build the kernels from src/repro_torch/kernels/csrc, one nvcc each,
      all started together: flash attention (K1), the sLSTM scan (K4), the
-     selective scan (K3) and the grouped expert GEMM (K2);
+     selective scan (K3) and the grouped expert GEMM (K2); count each
+     kernel function's HGMMA (wgmma) and UTMALDG (TMA load) instructions
+     in the built code, and fail unless K1's and K2's wgmma bodies have
+     both;
   3. hold K1 against its plain PyTorch version on the card over head dims
-     16..256, MHA/GQA/MQA, ragged S, window and softcap, and time it at
-     Phi-4-mini's prefill shapes beside its plain version, torch's
-     scaled_dot_product_attention and the card's bound;
+     16..256, MHA/GQA/MQA, ragged S, window and softcap (each case records
+     the body it took), and time it at Phi-4-mini's prefill shapes (S = 37,
+     512, 1000), Granite's (S = 512, hd 64) and Jamba's (S = 481, 32 q
+     heads, 8 kv heads, hd 128) beside its plain version,
+     torch's scaled_dot_product_attention (the default call, and under
+     each backend that takes the call, with the one the default picks) and
+     the card's bound;
   4. hold K4 against its plain version over the reference test's shapes,
      ragged S, float32 and bf16 preactivations, m0 = -1e30 and -inf, a
      nonzero initial state and xLSTM 1.3B's full width, and time it there;
@@ -20,13 +27,14 @@ Phases, each printing one JSON line (and failing the run on any error):
      mixed dtypes (dt float32) and Jamba's full width, each in float32 and
      in bf16, and time it at full width;
   5a. hold K2 against its plain version over the reference test's shapes,
-     ragged M, N and K, M = 1 and 4, Granite's and Jamba's prefill shapes
-     and Jamba's decode shape, in float32 and bf16, and time it at
+     ragged M, N and K, M = 1, 4, 300 and 320, Granite's and Jamba's
+     prefill shapes and Jamba's decode shape, in float32 and bf16, and time
+     it at
      Jamba's prefill and decode shapes and Granite's beside its plain
      version, torch.bmm and the card's bound;
   6. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
      the continuous-batching engine, check that every prefill went through
-     K1, and break a prefill and a decode step down;
+     K1's wgmma body, and break a prefill and a decode step down;
   7. token check: Phi-4-mini at full width and 2 layers in float32, the
      engine's tokens equal single-stream greedy decoding;
   8. the same serving run and breakdown for full-width xLSTM 1.3B (every
@@ -44,18 +52,26 @@ Phases, each printing one JSON line (and failing the run on any error):
  11. the Jamba token check: one group of 8 layers (7 Mamba, 1 attention,
      4 MoE) at full width in float32, 3 lanes, against single-stream greedy
      decoding through the plain path.
-Then a line with the kernel table, and last the device line. Exits
-nonzero without a CUDA device or without the repo's sources beside it.
+Every serving phase also checks that each K1 and K2 launch took the wgmma
+body (``launches_by_body``). Each phase runs under a deadline: a phase
+that hangs ends the run with an error. Then a line with the count of
+timings taken again after a host stall, a line with the kernel table, and
+last the device line. Exits nonzero without a CUDA device or without
+the repo's sources beside it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -92,6 +108,9 @@ GEMM_LIBRARY = "torch.bmm(x, w) at the same shape and dtype"
 L2_FLUSH_BYTES = 128 << 20
 
 OUT_LINES = []
+# cuda_ms readings taken again because the host had not queued every call
+# before the spin ran out
+CUDA_MS_RETAKES = [0]
 
 
 def emit(obj) -> None:
@@ -100,24 +119,54 @@ def emit(obj) -> None:
     print(line, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+@contextlib.contextmanager
+def deadline(seconds: float, what: str):
+    """Ends the process with exit code 3 if the block runs longer than
+    ``seconds``: a kernel that deadlocks fails the run instead of hanging
+    it."""
+    def expire():
+        print(f"chip_smoke: {what} passed its deadline of {seconds} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, tries: int = 3) -> float:
     """Mean device time of fn() in ms, by CUDA events over `iters` calls.
 
-    A spin kernel (~0.1 s) goes first, so the host has queued every call
-    before the start event fires: the events then time the device's work,
-    not the host's launch rate (which is slower than short kernels).
+    A spin kernel goes first, so the host has queued every call before the
+    start event fires: the events then time the device's work, not the
+    host's launch rate (which is slower than short kernels). If the start
+    event has already fired when the host has queued the last call (a host
+    stall outlasted the spin), the reading is taken again with a spin four
+    times longer. A function whose host time exceeds the last spin (a plain
+    version's Python loop) is read as it is, host-paced.
     """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    spin = 200_000_000  # cycles, ~0.1 s
+    for _ in range(tries):
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            break
+        CUDA_MS_RETAKES[0] += 1
+        spin *= 4
     return start.elapsed_time(end) / iters
 
 
@@ -145,8 +194,32 @@ def phase_env() -> None:
           "card": card, "device_count": torch.cuda.device_count()})
 
 
+def sass_counts(library: Path) -> dict:
+    """{kernel function: {"HGMMA": n, "UTMALDG": n}} from the library's
+    SASS (cuobjdump): the wgmma and TMA-load instructions that were built.
+    Functions are named by cu++filt, without their parameters."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    def tool(name, *args, stdin=None):
+        return subprocess.run(
+            [os.path.join(CUDA_HOME, "bin", name), *args], input=stdin,
+            capture_output=True, text=True, check=True).stdout
+
+    counts, cur = {}, None
+    for line in tool("cuobjdump", "-sass", str(library)).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {"HGMMA": 0, "UTMALDG": 0})
+        elif cur is not None:
+            for op in cur:
+                cur[op] += op in line
+    names = tool("cu++filt", "-p", stdin="\n".join(counts)).splitlines()
+    return dict(zip(names, counts.values()))
+
+
 def phase_build(kernels):
-    """Build every kernel, one nvcc process each, all started together."""
+    """Build every kernel, one nvcc process each, all started together;
+    count the wgmma and TMA instructions of each kernel function."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.build import BUILD_DIR
@@ -165,20 +238,82 @@ def phase_build(kernels):
         lines = [ln.strip() for ln in ptxas.read_text().splitlines()
                  if "registers" in ln or "spill" in ln] if ptxas.exists() \
             else []
+        sass = sass_counts(BUILD_DIR / f"{name}.so")
         emit({"phase": "build", "kernel": name, "seconds": seconds[name],
-              "ptxas": lines})
+              "ptxas": lines, "sass": sass})
+        wgmma = {f: c for f, c in sass.items() if "wgmma" in f}
+        if name in ("flash_attention", "expert_gemm") and not (
+                wgmma and all(c["HGMMA"] and c["UTMALDG"]
+                              for c in wgmma.values())):
+            raise AssertionError(f"{name}: no wgmma body with HGMMA and "
+                                 f"UTMALDG instructions: {sass}")
     emit({"phase": "build", "all_seconds": time.time() - t0})
 
 
-def phase_kernel_check(flash_kernel, flash_attention_ref, seed: int):
-    """Kernel vs plain version on the card; times at the phi4 shapes."""
-    import torch.nn.functional as F
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
+
+def _device_kernels(fn) -> set:
+    """The device kernels one call of fn() launches, by the first 40
+    characters of their names (a tuning variant's suffix varies between
+    calls), memsets left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:40] for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and not e.key.startswith("Memset")}
+
+
+def sdpa_yardstick(qt, kt, vt) -> dict:
+    """torch's scaled_dot_product_attention on [B,H,S,hd] inputs: the
+    default call's time, the time under each backend that takes the call
+    (or why it refused), and which backend the default call ran (by the
+    device kernels it launches)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def under(backend):
+        def run():
+            with sdpa_kernel(backend):
+                return call()
+        return run
+
+    rec = {"library_ms": cuda_ms(call), "sdpa_backends": {}}
+    default = _device_kernels(call)
+    rec["sdpa_default_kernels"] = sorted(default)
+    rec["sdpa_default_backend"] = None
+    for name in SDPA_BACKENDS:
+        run = under(getattr(SDPBackend, name))
+        try:  # a backend refuses shapes or flags it does not take
+            run()
+        except RuntimeError as err:
+            rec["sdpa_backends"][name] = f"refused: {str(err)[:160]}"
+            continue
+        rec["sdpa_backends"][name] = cuda_ms(run)
+        if _device_kernels(run) == default:
+            rec["sdpa_default_backend"] = name
+    return rec
+
+
+def phase_kernel_check(flash_kernel, flash_attention_ref, body_for,
+                       seed: int):
+    """Kernel vs plain version on the card; times at the phi4, Granite and
+    Jamba prefill shapes."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     # (label, B, S, Hq, Hkv, hd, causal, window, softcap)
     cases = [(f"phi4_S{S}", 1, S, 24, 8, 128, True, 0, 0.0)
              for S in (37, 512, 1000)]
-    cases += [("mha_hd64", 1, 256, 4, 4, 64, True, 0, 0.0),
+    cases += [("granite_S512", 1, 512, 16, 8, 64, True, 0, 0.0),
+              # Jamba's attention shape at its longest prompt of the run
+              ("jamba_S481", 1, 481, 32, 8, 128, True, 0, 0.0),
+              ("mha_hd64", 1, 256, 4, 4, 64, True, 0, 0.0),
               ("gqa_hd64_b2", 2, 256, 4, 2, 64, True, 0, 0.0),
               ("mqa_hd128", 1, 128, 4, 1, 128, True, 0, 0.0),
               ("gqa_hd16_ragged", 1, 100, 4, 2, 16, True, 0, 0.0),
@@ -209,18 +344,15 @@ def phase_kernel_check(flash_kernel, flash_attention_ref, seed: int):
             rec = {"phase": "kernel_check", "case": label,
                    "dtype": str(dtype).split(".")[1], "B": B, "S": S,
                    "Hq": Hq, "Hkv": Hkv, "hd": hd, "causal": causal,
-                   "window": window, "softcap": softcap, "max_abs_err": err,
+                   "window": window, "softcap": softcap,
+                   "body": body_for(q, k, v), "max_abs_err": err,
                    "tol": TOL[dtype], "ok": ok}
-            if label.startswith("phi4"):
+            if label.startswith(("phi4", "granite", "jamba")):
                 rec["kernel_ms"] = cuda_ms(lambda: flash_kernel(q, k, v, **kw))
                 rec["plain_ms"] = cuda_ms(
                     lambda: flash_attention_ref(q, k, v, **kw))
-                qt = q.transpose(1, 2).contiguous()
-                kt = k.transpose(1, 2).contiguous()
-                vt = v.transpose(1, 2).contiguous()
-                rec["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True))
+                rec.update(sdpa_yardstick(*(t.transpose(1, 2).contiguous()
+                                            for t in (q, k, v))))
                 rec["bound_ms"], rec["bound_by"] = attention_bound(
                     B, S, S, Hq, Hkv, hd, dtype)
                 timed[(label, dtype)] = rec
@@ -408,7 +540,7 @@ def gemm_bound(E, M, K, N, dtype):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def phase_gemm_check(expert_kernel, expert_gemm_ref, seed: int):
+def phase_gemm_check(expert_kernel, expert_gemm_ref, body_for, seed: int):
     """K2 vs its plain version on the card; times at the main path's
     shapes (Jamba's prefill and decode, Granite's prefill) beside
     torch.bmm."""
@@ -424,6 +556,8 @@ def phase_gemm_check(expert_kernel, expert_gemm_ref, seed: int):
              ("ragged_n33", 2, 17, 64, 33),
              ("m1", 4, 1, 256, 384),
              ("m4", 4, 4, 512, 256),
+             ("m300", 4, 300, 512, 1024),
+             ("m320", 4, 320, 1024, 512),
              ("granite_up", 32, 160, 1024, 512),
              ("granite_down", 32, 160, 512, 1024),
              ("jamba_up", 16, 80, 4096, 14336),
@@ -446,7 +580,8 @@ def phase_gemm_check(expert_kernel, expert_gemm_ref, seed: int):
                                      rtol=tol))
             rec = {"phase": "gemm_check", "case": label,
                    "dtype": str(dtype).split(".")[1], "E": E, "M": M, "K": K,
-                   "N": N, "max_abs_err": err, "tol": tol, "ok": ok}
+                   "N": N, "body": body_for(x, w), "max_abs_err": err,
+                   "tol": tol, "ok": ok}
             if label.startswith("jamba_up"):
                 rec["tol_reason"] = (
                     "bf16: the same exact products summed in float32 in "
@@ -486,8 +621,9 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
                 plain_iters: int = 3):
     """Serve 16 requests of the full-width model ``cfg`` on 8 lanes; every
     prefill must launch each kernel ``per_request[name]`` times (and any
-    other kernel never). Then the breakdown of one prefill and one decode
-    step."""
+    other kernel never), K1 and K2 always in their wgmma body. Then the
+    breakdown of one prefill and one decode step. Returns the launch
+    counts and the counts by body."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
@@ -529,11 +665,15 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kernel in ops.KERNELS.values():
-        kernel.launches = 0
+        kernel.reset_counts()
     stats = engine.run(reqs)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    by_body = {name: dict(k.launches_by_body)
+               for name, k in ops.KERNELS.items()}
     expected = {name: per_request.get(name, 0) * n_req for name in counts}
+    want_body = {name: {"wgmma": expected[name]} if expected[name] else {}
+                 for name in ("flash_attention", "expert_gemm")}
     toks = [t for r in reqs for t in r.output]
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params,
@@ -544,9 +684,14 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
           "prompt_len_min": int(lens.min()), "prompt_len_max": int(lens.max()),
           "prompt_tokens": int(lens.sum()), "max_new_tokens": max_new,
           **stats, "launches": counts, "launches_expected": expected,
+          "launches_by_body": by_body,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     if counts != expected:
         raise AssertionError(f"launches {counts}, want {expected}")
+    for name, want in want_body.items():
+        if by_body[name] != want:
+            raise AssertionError(f"{name} launches by body {by_body[name]}, "
+                                 f"want {want}")
     if any(len(r.output) != max_new for r in reqs):
         raise AssertionError("a request stopped short of max_new_tokens")
     if not all(0 <= t < cfg.vocab_size for t in toks):
@@ -554,7 +699,7 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     phase_breakdown(model, params, engine, rng, plain_iters)
     del engine, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, by_body
 
 
 def _host_ms(fn, iters: int) -> float:
@@ -621,7 +766,7 @@ def phase_breakdown(model, params, engine, rng, plain_iters: int):
 def moe_block_times(model, params, rec) -> None:
     """Device time of one MoE block on a 512-token prefill's input, its
     expert products through K2 and through the einsums (the path before
-    K2), and that difference over all the model's MoE layers."""
+    K2), and the difference over all the model's MoE layers."""
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.transformer import _index, _pos_name
 
@@ -633,8 +778,8 @@ def moe_block_times(model, params, rec) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((1, rec["prefill_S"], cfg.d_model), generator=gen,
                     device="cuda").to(block["experts"]["w_up"].dtype)
-    for kernel in (True, False):
-        rec[f"moe_block_ms_{'kernel' if kernel else 'einsum'}"] = cuda_ms(
+    for kernel, name in ((True, "kernel"), (False, "einsum")):
+        rec[f"moe_block_ms_{name}"] = cuda_ms(
             lambda: moe_lib.moe_apply(block, x, cfg, use_kernel=kernel),
             iters=10)
     rec["moe_layers"] = len(moe_layers)
@@ -719,57 +864,90 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env()
-    phase_build(ops.KERNELS)
-    flash_timed = phase_kernel_check(
-        flash_attention.flash_kernel, flash_attention.flash_attention_ref,
-        args.seed)
-    slstm_timed = phase_slstm_check(
-        slstm_scan.slstm_kernel, slstm_scan.slstm_scan_ref, args.seed)
-    ssm_timed = phase_ssm_check(ssm_scan.ssm_kernel, ssm_scan.ssm_scan_ref,
-                                args.seed)
-    gemm_timed = phase_gemm_check(expert_gemm.expert_kernel,
-                                  expert_gemm.expert_gemm_ref, args.seed)
+    with deadline(300, "build"):
+        phase_build(ops.KERNELS)
+    with deadline(240, "kernel_check"):
+        flash_timed = phase_kernel_check(
+            flash_attention.flash_kernel, flash_attention.flash_attention_ref,
+            flash_attention._body_for, args.seed)
+    with deadline(180, "slstm_check"):
+        slstm_timed = phase_slstm_check(
+            slstm_scan.slstm_kernel, slstm_scan.slstm_scan_ref, args.seed)
+    with deadline(180, "ssm_check"):
+        ssm_timed = phase_ssm_check(
+            ssm_scan.ssm_kernel, ssm_scan.ssm_scan_ref, args.seed)
+    with deadline(300, "gemm_check"):
+        gemm_timed = phase_gemm_check(
+            expert_gemm.expert_kernel, expert_gemm.expert_gemm_ref,
+            expert_gemm._body_for, args.seed)
 
     def two_layers(arch):
         return dataclasses.replace(get_config(arch), n_layers=2,
                                    dtype="float32")
 
-    phi4 = phase_serve(get_config("phi4_mini_3_8b"), args.seed, (32, 768),
-                       {"flash_attention": 32})
-    phase_tokens(two_layers("phi4_mini_3_8b"), args.seed,
-                 plain_kernel_path=False)
-    xlstm = phase_serve(get_config("xlstm_1_3b"), args.seed, (32, 512),
-                        {"slstm_scan": 24}, plain_iters=1)
-    phase_tokens(two_layers("xlstm_1_3b"), args.seed, plain_kernel_path=True)
+    def serve(name, *a, **kw):
+        with deadline(400, f"serve {name}"):
+            return phase_serve(*a, **kw)
+
+    def tokens(name, *a, **kw):
+        with deadline(400, f"tokens {name}"):
+            phase_tokens(*a, **kw)
+
+    phi4, phi4_body = serve("phi4", get_config("phi4_mini_3_8b"), args.seed,
+                            (32, 768), {"flash_attention": 32})
+    tokens("phi4", two_layers("phi4_mini_3_8b"), args.seed,
+           plain_kernel_path=False)
+    xlstm, _ = serve("xlstm", get_config("xlstm_1_3b"), args.seed,
+                     (32, 512), {"slstm_scan": 24}, plain_iters=1)
+    tokens("xlstm", two_layers("xlstm_1_3b"), args.seed,
+           plain_kernel_path=True)
     # Granite-MoE at full width and depth: every layer attention + MoE
     granite_cfg = get_config("granite_moe_1b_a400m")
-    granite = phase_serve(granite_cfg, args.seed, (32, 512),
-                          {"expert_gemm": 72, "flash_attention": 24})
-    phase_tokens(dataclasses.replace(granite_cfg, dtype="float32"),
-                 args.seed, plain_kernel_path=False)
+    granite, granite_body = serve(
+        "granite", granite_cfg, args.seed, (32, 512),
+        {"expert_gemm": 72, "flash_attention": 24})
+    tokens("granite", dataclasses.replace(granite_cfg, dtype="float32"),
+           args.seed, plain_kernel_path=False)
     # Jamba at every published width: 16 of 32 layers (two groups of 8)
     # fit one 80 GB card in bf16; each group has 7 Mamba and 1 attention
     # layers
     jamba_cfg = get_config("jamba_v01_52b")
-    jamba = phase_serve(dataclasses.replace(jamba_cfg, n_layers=16),
-                        args.seed, (32, 512),
-                        {"ssm_scan": 14, "flash_attention": 2,
-                         "expert_gemm": 24}, plain_iters=1)
-    phase_tokens(dataclasses.replace(jamba_cfg, n_layers=8, dtype="float32"),
-                 args.seed, plain_kernel_path=False)
+    jamba, jamba_body = serve(
+        "jamba", dataclasses.replace(jamba_cfg, n_layers=16), args.seed,
+        (32, 512), {"ssm_scan": 14, "flash_attention": 2, "expert_gemm": 24},
+        plain_iters=1)
+    tokens("jamba", dataclasses.replace(jamba_cfg, n_layers=8,
+                                        dtype="float32"),
+           args.seed, plain_kernel_path=False)
 
+    emit({"phase": "timing", "cuda_ms_retakes": CUDA_MS_RETAKES[0]})
     rec = flash_timed[("phi4_S512", torch.bfloat16)]
+    flash_keys = ("B", "S", "Hq", "Hkv", "hd", "max_abs_err", "kernel_ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "sdpa_backends", "sdpa_default_backend")
     emit({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": str(flash_attention.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/flash_attention.py:85",
         "launches": phi4["flash_attention"],
+        "launches_granite": granite["flash_attention"],
         "launches_jamba": jamba["flash_attention"],
+        "launches_by_body": {"phi4": phi4_body["flash_attention"],
+                             "granite": granite_body["flash_attention"],
+                             "jamba": jamba_body["flash_attention"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
-        "shape": "B=1 S=T=512 Hq=24 Hkv=8 hd=128 bf16 causal"}, {
+        "library_note": "torch scaled_dot_product_attention, default "
+                        "backend, at the same shape and dtype",
+        "sdpa_backends": rec["sdpa_backends"],
+        "sdpa_default_backend": rec["sdpa_default_backend"],
+        "shape": "B=1 S=T=512 Hq=24 Hkv=8 hd=128 bf16 causal",
+        "other_shapes": {label: {key: flash_timed[(label, torch.bfloat16)][key]
+                                 for key in flash_keys}
+                         for label in ("phi4_S37", "phi4_S1000",
+                                       "granite_S512", "jamba_S481")}}, {
         "name": "slstm_scan", "route": "cuda",
         "source": str(slstm_scan.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/slstm_scan.py:76",
@@ -795,6 +973,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/moe_gemm.py:38",
         "launches": granite["expert_gemm"],
         "launches_jamba": jamba["expert_gemm"],
+        "launches_by_body": {"granite": granite_body["expert_gemm"],
+                             "jamba": jamba_body["expert_gemm"]},
         "max_abs_err": gemm_timed["jamba_up"]["max_abs_err"],
         "ms": gemm_timed["jamba_up"]["kernel_ms"],
         "plain_ms": gemm_timed["jamba_up"]["plain_ms"],

@@ -18,6 +18,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -28,8 +30,13 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def to_torch(tree: Mapping[str, Any], device="cpu") -> dict:
-    """Nested dict of numpy arrays -> nested dict of tensors, same keys."""
+def to_torch(tree: Mapping[str, Any], device="cuda") -> dict:
+    """Nested dict of numpy arrays -> nested dict of tensors, same keys.
+
+    On the card unless ``device="cpu"``, like the port's other entry
+    points; asking for CUDA where there is none raises.
+    """
+    device = resolve_device(device)
     return {k: to_torch(v, device) if isinstance(v, Mapping)
             else _leaf_to_torch(v, device) for k, v in tree.items()}
 

@@ -7,7 +7,8 @@
 //
 // Layout: q [B,S,Hq,hd], k/v [B,T,Hkv,hd], o [B,S,Hq,hd], read and written
 // through their batch, sequence and head strides (head_dim is unit-stride),
-// so no transposed copies are made. kv head = q head / (Hq / Hkv).
+// so no transposed copies are made: k and v are views into the serving
+// cache [B,L,Hkv,hd]. kv head = q head / (Hq / Hkv).
 //
 // Design. The TPU kernel walks a sequential (q block, k block) grid with
 // 512x512 tiles and an fp32 [block_q, hd] accumulator in VMEM; at hd 128
@@ -16,31 +17,65 @@
 // loops over 64-row key blocks inside the block, so nothing is carried
 // between CTAs; the accumulator lives in registers. The key loop starts at
 // the window's edge and stops at the causal diagonal, so blocks above the
-// diagonal or outside the window are never loaded. Ragged S and T are
-// masked (the TPU kernel asserts S % block_q == 0). Two bodies, chosen by
-// dtype:
-//  - bfloat16 (the serving path): 4 warps, each owning 16 query rows, on
-//    the tensor cores with mma.sync m16n8k16 (fp32 accumulation). Q, K and
-//    V tiles sit in shared memory and reach the tensor cores through
-//    ldmatrix; the score fragment becomes the A operand of P.V in
-//    registers (P rounded to bf16), so P never touches shared memory.
+// diagonal or outside the window are never loaded, and query blocks are
+// launched longest rows first. Ragged S and T are masked (the TPU kernel
+// asserts S % block_q == 0). Three bodies; the caller
+// (kernels/flash_attention.py::_body_for) picks one by dtype and shape:
+//  - wgmma (bfloat16 at head dims 64 and 128: phi4, Granite, Jamba). Warp-
+//    specialised: a producer warp loads Q once and streams the key loop's K
+//    and V tiles by TMA (128-byte-swizzled 64 x 64 boxes of a 4-D tensor map
+//    per operand, whose extents are T and S, not the cache's L, so rows past
+//    the view load as zeros) through two rings of 3 (hd 128) or 4 (hd 64)
+//    stages, each stage with its own full/empty mbarriers: a K tile is
+//    released as soon as S is computed, a V tile after P V. One TMA round
+//    trip takes about as long as a block's math, so two stages were too few.
+//    One consumer warpgroup computes S = Q K^T with wgmma m64n64k16 from
+//    shared memory; applies scale, softcap, masks (only on blocks at an edge)
+//    and the online softmax, in base 2 with the scale folded into one FFMA
+//    per exp on interior blocks, to the fp32 fragment in registers (the
+//    softmax, not the tensor cores, is most of a block's instructions);
+//    rounds P to bf16 in registers; and computes O += P V with wgmma
+//    m64n{hd}k16, A (P) from registers and V from shared memory with the
+//    transpose bit. As in FA3, block j's S and block j - 1's P V are issued
+//    together: O's rescale runs under S, block j's softmax under P V.
+//    (Issuing block j + 1's S into a second accumulator before block j's
+//    softmax made ptxas serialise the wgmmas, C7515: slower.) 64 query rows
+//    per CTA rather than FA3's 128 over two consumer warpgroups: phi4 at S =
+//    512 has 8 x 24 = 192 query blocks of 64 for 132 SMs (96 of 128 would
+//    leave 36 SMs idle), and 114,792 bytes of shared memory at hd 128 let two
+//    CTAs share an SM, so one CTA's softmax overlaps the other's wgmma. The
+//    producer is one warp, not a warpgroup: 160 threads and two CTAs an SM
+//    leave a consumer thread up to 200 registers (O 64, S 32, P 16 at hd 128)
+//    without setmaxnreg; at 256 threads ptxas fit the kernel into 128 and
+//    serialised the wgmmas for want of registers. The query block is the
+//    slowest grid dimension, reversed, so every head's longest rows start
+//    first (this matters once CTAs outnumber the slots: 384 for 264 at S =
+//    1000).
+//  - mma_sync (bfloat16 at hd 16, 32 and 256): 4 warps, each owning 16
+//    query rows, on the tensor cores with mma.sync m16n8k16 (fp32
+//    accumulation). Q, K and V tiles are loaded into shared memory with
+//    plain 16-byte loads and reach the tensor cores through ldmatrix; the
+//    score fragment becomes the A operand of P.V in registers (P rounded
+//    to bf16), so P never touches shared memory.
 //  - float32: 256 threads as a 16x16 grid on fp32 FMA, tiles staged as
 //    float in shared memory, 4 query rows per thread; keeps float32 from
 //    load to store.
-// In both, the 4 (mma) or 16 (FMA) threads that share a row reduce its
-// running max and sum with warp shuffles.
+// In all, the 4 (tensor cores) or 16 (FMA) threads that share a row reduce
+// its running max and sum with warp shuffles.
 //
 // Bound. At the serving path's prefill shapes (S = T <= ~1k, Hq 24, Hkv 8,
 // hd 128, bf16) the function moves ~8 MB and does ~1.6 GFLOP per call, so
 // on an H100 it is bound by bytes (~2.5 us at 3.35 TB/s) rather than by
-// the bf16 tensor-core rate (~1.6 us). These bodies load tiles without
-// overlapping copies and compute (no cp.async/TMA pipeline) and use
-// mma.sync rather than wgmma; both are later work.
+// the bf16 tensor-core rate (~1.6 us); the inputs then sit in L2, and what
+// limits a call is the critical path of the longest CTA (the last query
+// block walks every key block), which the TMA ring and wgmma shorten.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -417,6 +452,304 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 body at head dims 64 and 128: TMA + wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int THREADS = 160;       // a consumer warpgroup and a producer warp
+constexpr int BOX = 64 * 64 * 2;   // one 64-row x 64-head-dim box, bytes
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x in one MUFU op (relative error ~2^-22; P is rounded to bf16 anyway);
+// 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+struct Cfg {
+  static constexpr int NB = HD / 64;      // boxes across the head dim
+  static constexpr int TILE = NB * BOX;   // a [64][HD] tile
+  // stages of K and of V each: as many as leave two CTAs an SM (2 x 114,792
+  // bytes at hd 128, with the SM's 1 KB a CTA)
+  static constexpr int STAGES = HD == 64 ? 4 : 3;
+  static constexpr int SMEM = TILE + STAGES * 2 * TILE + (1 + 4 * STAGES) * 8;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 2)  // <= 200 registers a thread
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    bf16* __restrict__ o, int S, int Tk, int group,
+                    long long ob, long long os, long long oh, float scale,
+                    int causal, int window, float softcap) {
+  using C = Cfg<HD>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* Qs = smem_raw;
+  uint8_t* Kst = Qs + C::TILE;                  // K ring
+  uint8_t* Vst = Kst + C::STAGES * C::TILE;     // V ring
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vst + C::STAGES * C::TILE);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* kempty = kfull + C::STAGES;
+  uint64_t* vfull = kempty + C::STAGES;
+  uint64_t* vempty = vfull + C::STAGES;
+
+  // the query block is the slowest grid dimension, reversed: the longest
+  // rows of every head start first, the short ones fill in behind them
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  const int nblk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  check_align1024(smem_raw);
+  if (threadIdx.x == 128) {
+    prefetch_tensor_map(&qmap);
+    prefetch_tensor_map(&kmap);
+    prefetch_tensor_map(&vmap);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], 128);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: one thread loads Q, then keeps the K and V rings full
+    if (threadIdx.x == 128) {
+      mbar_arrive_expect_tx(qbar, C::TILE);
+#pragma unroll
+      for (int nb = 0; nb < C::NB; ++nb)
+        tma_load_4d(Qs + nb * BOX, &qmap, qbar, 64 * nb, h, q0, b);
+      for (int j = 0; j < nblk; ++j) {
+        const int s = j % C::STAGES, k0 = k_begin + j * BK;
+        const uint32_t free = ((j / C::STAGES) & 1) ^ 1;
+        mbar_wait(&kempty[s], free);
+        mbar_arrive_expect_tx(&kfull[s], C::TILE);
+#pragma unroll
+        for (int nb = 0; nb < C::NB; ++nb)
+          tma_load_4d(Kst + s * C::TILE + nb * BOX, &kmap, &kfull[s],
+                      64 * nb, hk, k0, b);
+        mbar_wait(&vempty[s], free);
+        mbar_arrive_expect_tx(&vfull[s], C::TILE);
+#pragma unroll
+        for (int nb = 0; nb < C::NB; ++nb)
+          tma_load_4d(Vst + s * C::TILE + nb * BOX, &vmap, &vfull[s],
+                      64 * nb, hk, k0, b);
+      }
+    }
+  } else {
+    // consumer: warp w owns query rows 16 w .. 16 w + 15 of the block
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+    float oacc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    float sacc[32];
+    uint32_t pa[4][4];  // P of the previous block, the A of its P V
+    const uint32_t qa = smem_u32(Qs);
+    const float scale2 = scale * kLog2e;
+
+    // S = Q K^T of block j into sacc: both K-major; a k16 step is 32
+    // bytes along a 128-byte row, four steps a box
+    auto issue_s = [&](int j) {
+      const int s = j % C::STAGES;
+      mbar_wait(&kfull[s], (j / C::STAGES) & 1);
+      const uint32_t ka = smem_u32(Kst + s * C::TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+        wgmma_ss<0, 0>(sacc, desc_sw128(qa + off, 16, 1024),
+                       desc_sw128(ka + off, 16, 1024), kk);
+      }
+      wgmma_commit();
+    };
+    // O += P V of block j: P from registers; V is N-contiguous
+    // (transposed), a k16 step is 16 rows down, its 64-wide head-dim
+    // boxes BOX apart
+    auto issue_pv = [&](int j) {
+      const int s = j % C::STAGES;
+      mbar_wait(&vfull[s], (j / C::STAGES) & 1);
+      const uint32_t va = smem_u32(Vst + s * C::TILE);
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        wgmma_rs<1>(oacc, pa[c], desc_sw128(va + c * 2048, BOX, 1024), 1);
+      wgmma_commit();
+    };
+    // online softmax of block j in base 2 (logits times log2 e, so each
+    // exp is one ex2); sacc element e is row[(e >> 1) & 1], key
+    // k0 + 8 (e >> 2) + 2 t4 + (e & 1). Only blocks on the T edge, the
+    // causal diagonal or the window's edge are masked. Leaves P in sacc
+    // (float) and the rows' rescale factors in alpha.
+    auto softmax = [&](int j, float (&alpha)[2]) {
+      const int k0 = k_begin + j * BK;
+      const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + BQ - 1 - window);
+      const bool plain = softcap <= 0.f && !edge;
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      if (plain) {
+        // the common block (inside T, below the diagonal, no cap): the max
+        // of the raw scores, the scale folded into each exp's FFMA below
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sacc[e]);
+        mx[0] *= scale2;
+        mx[1] *= scale2;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          float x = softcap > 0.f ? logit(sacc[e], scale, softcap) * kLog2e
+                                  : sacc[e] * scale2;
+          if (edge && !visible(row[(e >> 1) & 1],
+                               k0 + (e >> 2) * 8 + t4 * 2 + (e & 1), Tk,
+                               causal, window))
+            x = NEG_INF;
+          sacc[e] = x;
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+        }
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = ex2(m[i] - m_new);  // 0 on the first block
+        m[i] = m_new;
+      }
+      if (plain) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          sacc[e] = ex2(fmaf(sacc[e], scale2, -m[(e >> 1) & 1]));
+          sum[(e >> 1) & 1] += sacc[e];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          sacc[e] = ex2(sacc[e] - m[(e >> 1) & 1]);
+          sum[(e >> 1) & 1] += sacc[e];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * alpha[i] + sum[i];
+      }
+    };
+    // the fragments of key tiles 2c and 2c + 1 are the A registers of the
+    // 16-key step c
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pa[c][0] = pack_bf16(sacc[8 * c], sacc[8 * c + 1]);
+        pa[c][1] = pack_bf16(sacc[8 * c + 2], sacc[8 * c + 3]);
+        pa[c][2] = pack_bf16(sacc[8 * c + 4], sacc[8 * c + 5]);
+        pa[c][3] = pack_bf16(sacc[8 * c + 6], sacc[8 * c + 7]);
+      }
+    };
+
+    // rescales O by block j's alpha before block j's P V
+    auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    };
+
+    mbar_wait(qbar, 0);
+    if (nblk > 0) {
+      float alpha[2];
+      issue_s(0);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      mbar_arrive(&kempty[0]);
+      softmax(0, alpha);
+      pack_p();
+      // block j's S and block j - 1's P V go to the tensor cores together;
+      // O's rescale runs under S, block j's softmax under P V
+      for (int j = 1; j < nblk; ++j) {
+        issue_s(j);
+        rescale(alpha);
+        issue_pv(j - 1);
+        wgmma_wait<1>();  // S of block j is done
+        fence_regs(sacc);
+        mbar_arrive(&kempty[j % C::STAGES]);
+        softmax(j, alpha);
+        wgmma_wait<0>();  // P V of block j - 1 is done
+        fence_regs(oacc);
+        mbar_arrive(&vempty[(j - 1) % C::STAGES]);
+        pack_p();
+      }
+      rescale(alpha);
+      issue_pv(nblk - 1);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(&vempty[(nblk - 1) % C::STAGES]);
+    }
+
+    o += b * ob + h * oh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= S) continue;
+      const float den = fmaxf(l[i], 1e-30f);
+      bf16* orow = o + row[i] * os + t4 * 2;
+#pragma unroll
+      for (int jj = 0; jj < HD / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(orow + jj * 8) =
+            __floats2bfloat162_rn(oacc[4 * jj + 2 * i] / den,
+                                  oacc[4 * jj + 2 * i + 1] / den);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int S, int Tk, int Hq, int Hkv, const Strides& st, float scale,
+           int causal, int window, float softcap, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  // 4-D maps [B, rows, heads, hd], innermost first, over each view's own
+  // strides and extents (S for q, T for k and v)
+  const uint32_t box[4] = {64, 1, 64, 1};
+  const uint64_t qd[4] = {HD, uint64_t(Hq), uint64_t(S), uint64_t(B)};
+  const uint64_t kd[4] = {HD, uint64_t(Hkv), uint64_t(Tk), uint64_t(B)};
+  const uint64_t qs[3] = {uint64_t(st.qh), uint64_t(st.qs), uint64_t(st.qb)};
+  const uint64_t ks[3] = {uint64_t(st.kh), uint64_t(st.ks), uint64_t(st.kb)};
+  const uint64_t vs[3] = {uint64_t(st.vh), uint64_t(st.vs), uint64_t(st.vb)};
+  CUtensorMap qm, km, vm;
+  int err = make_tensor_map_bf16(&qm, q, 4, qd, qs, box);
+  if (err == 0) err = make_tensor_map_bf16(&km, k, 4, kd, ks, box);
+  if (err == 0) err = make_tensor_map_bf16(&vm, v, 4, kd, vs, box);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(Hq, B, (S + BQ - 1) / BQ);
+  flash_fwd_wgmma<HD><<<grid, THREADS, C::SMEM, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), S, Tk, Hq / Hkv, st.ob, st.os, st.oh,
+      scale, causal, window, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -481,15 +814,30 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
 // (batch, seq, head) for q, k, v, o. For bfloat16 every pointer must be
 // 16-byte aligned and every stride a multiple of 8 (the caller checks).
-// Returns cudaGetLastError() after the launch (0 on success).
+// body: 0 = the dtype's mma_sync / FMA body, 1 = the TMA + wgmma body
+// (bfloat16 at hd 64 or 128; anything else is refused). Returns
+// cudaGetLastError() after the launch (0 on success), or
+// hopper::kTensorMapError + the CUresult if a tensor map is refused.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int Tk, int Hq, int Hkv, int hd, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, long long osb, long long oss, long long osh,
-    float scale, int causal, int window, float softcap, void* stream) {
+    float scale, int causal, int window, float softcap, int body,
+    void* stream) {
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    if (hd == 64)
+      return wg::launch<64>(q, k, v, o, B, S, Tk, Hq, Hkv, st, scale, causal,
+                            window, softcap, s);
+    if (hd == 128)
+      return wg::launch<128>(q, k, v, o, B, S, Tk, Hq, Hkv, st, scale,
+                             causal, window, softcap, s);
+    return cudaErrorInvalidValue;
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_hd<float>(hd, q, k, v, o, B, S, Tk, Hq, Hkv, st, scale,
                               causal, window, softcap, s);

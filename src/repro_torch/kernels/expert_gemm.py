@@ -5,8 +5,9 @@ version.
 copies, cast to x's dtype. It is the CPU path and the yardstick the kernel
 is held against. ``ExpertGemmKernel`` builds ``csrc/expert_gemm.cu`` for
 ``sm_90a`` at first use (``kernels/build.py``), loads it with ``ctypes``
-and launches it on PyTorch's current stream, one launch for all experts.
-``expert_kernel.launches`` counts the launches.
+and launches it on PyTorch's current stream, one launch for all experts,
+in the body ``_body_for`` picks. ``expert_kernel.launches`` counts the
+launches, ``launches_by_body`` splits them by body.
 
 Replaces ``repro/kernels/moe_gemm.py::expert_gemm``.
 """
@@ -22,7 +23,24 @@ from repro_torch.kernels.build import KernelLibrary
 SOURCE = Path(__file__).resolve().parent / "csrc" / "expert_gemm.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 65535       # the kernel's grid y (N tiles) and z (experts)
-_MIN_N_TILE = 64        # the float32 body's N tile; the bf16 one is 128
+_MIN_N_TILE = 64        # the float32 body's N tile; the bf16 ones' is 128
+_BODY_CODES = {"fma": 0, "mma_sync": 0, "wgmma": 1}
+
+
+def _body_for(x, w) -> str:
+    """Which body of the kernel takes the contiguous x [E,M,K] and w
+    [E,K,N]: ``"wgmma"`` (TMA + wgmma) for bfloat16 where K and N are
+    multiples of 8 (rows of 16-byte multiples, TMA's terms) and both bases
+    are 16-byte aligned, else ``"mma_sync"`` for bfloat16 and ``"fma"``
+    for float32. Decided from dtype, shape and alignment alone, before any
+    launch."""
+    if x.dtype != torch.bfloat16:
+        return "fma"
+    K, N = x.shape[2], w.shape[2]
+    if K % 8 == 0 and N % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and w.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "mma_sync"
 
 
 def expert_gemm_ref(x, w):
@@ -38,7 +56,7 @@ class ExpertGemmKernel(KernelLibrary):
 
     def _bind(self, lib) -> None:
         fn = lib.expert_gemm_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
@@ -49,14 +67,17 @@ class ExpertGemmKernel(KernelLibrary):
         E, M, K = x.shape
         N = w.shape[2]
         x, w = x.contiguous(), w.contiguous()
+        body = _body_for(x, w)
         out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.expert_gemm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  _DTYPES[x.dtype], E, M, K, N, stream)
+                                  _DTYPES[x.dtype], E, M, K, N,
+                                  _BODY_CODES[body], stream)
         if err != 0:
-            raise RuntimeError(f"expert_gemm_fwd launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
+            raise RuntimeError(f"expert_gemm_fwd ({body} body) launch "
+                               f"failed: error {err} (CUDA error, or 100000 "
+                               f"+ the CUresult of a refused tensor map)")
+        self._count(body)
         return out
 
 

@@ -4,8 +4,9 @@
 float32 math): the CPU path and the yardstick the kernel is held against.
 ``FlashAttentionKernel`` builds ``csrc/flash_attention.cu`` for ``sm_90a``
 at first use (``kernels/build.py``), loads it with ``ctypes`` and launches
-it on PyTorch's current stream. ``flash_kernel.launches`` counts the
-launches.
+it on PyTorch's current stream, in the body ``_body_for`` picks.
+``flash_kernel.launches`` counts the launches, ``launches_by_body`` splits
+them by body.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.
 """
@@ -22,7 +23,26 @@ NEG_INF = -2.3819763e38
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BODY_CODES = {"fma": 0, "mma_sync": 0, "wgmma": 1}
+
+
+def _body_for(q, k, v) -> str:
+    """Which body of the kernel takes these tensors: ``"wgmma"`` (TMA +
+    wgmma) for bfloat16 at head dims 64 and 128 where there is at least
+    one key, every base is 16-byte aligned and every stride a positive
+    multiple of 16 bytes (TMA's terms), else ``"mma_sync"`` for bfloat16
+    and ``"fma"`` for float32. Decided from dtype, shape and strides
+    alone, before any launch."""
+    if q.dtype != torch.bfloat16:
+        return "fma"
+    if q.shape[3] in WGMMA_HEAD_DIMS and k.shape[1] > 0 and all(
+            t.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0
+                                           for st in t.stride()[:3])
+            for t in (q, k, v)):
+        return "wgmma"
+    return "mma_sync"
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
@@ -63,7 +83,7 @@ class FlashAttentionKernel(KernelLibrary):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p])
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
     def __call__(self, q, k, v, causal: bool = True, window: int = 0,
@@ -76,16 +96,20 @@ class FlashAttentionKernel(KernelLibrary):
         out = torch.empty((B, S, Hq, hd), dtype=q.dtype, device=q.device)
         if out.numel() == 0:
             return out
+        body = _body_for(q, k, v)
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], B, S, T, Hq, Hkv, hd, *strides,
-            hd ** -0.5, int(causal), int(window), float(softcap), stream)
+            hd ** -0.5, int(causal), int(window), float(softcap),
+            _BODY_CODES[body], stream)
         if err != 0:
-            raise RuntimeError(f"flash_attention_fwd launch failed: CUDA "
-                               f"error {err}")
-        self.launches += 1
+            raise RuntimeError(f"flash_attention_fwd ({body} body) launch "
+                               f"failed: error {err} (CUDA error, or "
+                               f"100000 + the CUresult of a refused tensor "
+                               f"map)")
+        self._count(body)
         return out
 
 

@@ -94,7 +94,7 @@ class SlstmScanKernel(KernelLibrary):
         if err != 0:
             raise RuntimeError(f"slstm_scan_fwd launch failed: CUDA error "
                                f"{err}")
-        self.launches += 1
+        self._count("fma")
         return hs, (cT, nT, mT, hT)
 
 

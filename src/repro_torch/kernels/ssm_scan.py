@@ -78,7 +78,7 @@ class SsmScanKernel(KernelLibrary):
             y.data_ptr(), h_last.data_ptr(), Bb, S, d, N, flags, stream)
         if err != 0:
             raise RuntimeError(f"ssm_scan_fwd launch failed: CUDA error {err}")
-        self.launches += 1
+        self._count("fma")
         return y, h_last
 
 

@@ -56,7 +56,7 @@ def test_cache_round_trip_is_exact():
         lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
         init_caches(cfg, 2, 16))
     ref = dict(_leaves(to_numpy(caches)))
-    got = dict(_leaves(convert.to_numpy(convert.to_torch(to_numpy(caches)))))
+    got = dict(_leaves(convert.to_numpy(convert.to_torch(to_numpy(caches), device="cpu"))))
     assert ref.keys() == got.keys() == {"pos00/k", "pos00/v"}
     for key, a in ref.items():
         assert a.shape == (cfg.n_groups, 2, 16, cfg.n_kv_heads,
@@ -73,7 +73,7 @@ def test_xlstm_state_round_trip_is_exact():
         lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
         init_caches(cfg, 2, 16))
     ref = dict(_leaves(to_numpy(caches)))
-    tree = convert.to_torch(to_numpy(caches))
+    tree = convert.to_torch(to_numpy(caches), device="cpu")
     got = dict(_leaves(convert.to_numpy(tree)))
     assert ref.keys() == got.keys() == {
         "pos00/C", "pos00/n", "pos00/m", "pos00/conv",
@@ -158,7 +158,7 @@ def test_jamba_state_round_trip_is_exact():
         lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype),
         init_caches(cfg, 2, 16))
     ref = dict(_leaves(to_numpy(caches)))
-    tree = convert.to_torch(to_numpy(caches))
+    tree = convert.to_torch(to_numpy(caches), device="cpu")
     got = dict(_leaves(convert.to_numpy(tree)))
     assert ref.keys() == got.keys()
     assert set(tree["pos00"]) == {"conv", "h"}
@@ -167,3 +167,19 @@ def test_jamba_state_round_trip_is_exact():
     assert tree["pos00"]["h"].dtype == torch.float32
     for key, a in ref.items():
         np.testing.assert_array_equal(got[key], a.astype(np.float32))
+
+
+def test_to_torch_runs_on_the_card_unless_asked_for_the_cpu():
+    """Like the port's other entry points: CUDA by default, which raises
+    where there is none; ``device="cpu"`` always works."""
+    tree = {"a": np.ones((2, 3), np.float32),
+            "b": {"c": np.arange(4, dtype=np.float32)}}
+    if torch.cuda.is_available():
+        got = convert.to_torch(tree)
+        assert got["a"].is_cuda and got["b"]["c"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            convert.to_torch(tree)
+    got = convert.to_torch(tree, device="cpu")
+    assert got["a"].device.type == "cpu" and got["b"]["c"].device.type == "cpu"
+    np.testing.assert_array_equal(got["b"]["c"].numpy(), tree["b"]["c"])

@@ -109,3 +109,50 @@ def test_launches_count_kernel_calls_only():
         ops.expert_gemm(x, w)
     torch.cuda.synchronize()
     assert expert_kernel.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,M,K,N", [
+    (4, 4, 512, 1024),       # a decode step's capacity: wgmma N = 8
+    (4, 80, 1024, 512),      # Jamba's 512-token capacity
+    (4, 160, 512, 1024),     # Granite's
+    (2, 300, 256, 512),      # above 256: two capacity chunks, ragged
+    (2, 320, 512, 256),      # Jamba's 2,048-token capacity
+    (3, 72, 200, 136),       # K and N multiples of 8 but not of the tiles
+])
+def test_wgmma_body_over_capacities(E, M, K, N):
+    """bf16 with K and N multiples of 8 takes the TMA + wgmma body at every
+    capacity M; rows, columns and k past the edges load as zeros and are
+    masked on store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    x, w = _inputs(E, M, K, N, torch.bfloat16, seed=E + M + K + N)
+    before = expert_kernel.launches_by_body.get("wgmma", 0)
+    out = expert_kernel(x, w)
+    torch.cuda.synchronize()
+    assert expert_kernel.launches_by_body["wgmma"] == before + 1
+    assert out.shape == (E, M, N) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), expert_gemm_ref(x, w).float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_main_path_shapes_take_the_wgmma_body():
+    """Granite's and Jamba's prefill products and Jamba's decode shape
+    each launch once, in the wgmma body; the ragged shapes stay on
+    mma_sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    expert_kernel.reset_counts()
+    for E, M, K, N in ((32, 160, 1024, 512), (32, 160, 512, 1024),
+                       (16, 80, 4096, 14336), (16, 80, 14336, 4096),
+                       (16, 4, 4096, 14336)):
+        x, w = _inputs(E, M, K, N, torch.bfloat16, seed=M)
+        expert_kernel(x, w)
+        del x, w
+    for E, M, K, N in ((3, 70, 100, 50), (2, 17, 64, 33)):
+        expert_kernel(*_inputs(E, M, K, N, torch.bfloat16, seed=M))
+    torch.cuda.synchronize()
+    assert expert_kernel.launches_by_body == {"wgmma": 5, "mma_sync": 2}
+    assert expert_kernel.launches == 7

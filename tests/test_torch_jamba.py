@@ -117,7 +117,7 @@ def test_ssm_apply_matches_reference(dtype, S):
              for k, v in state.items()}
     oj, sj = jssm.ssm_apply(jparams, xj, cfg, state=state)
     ot, st = tssm.ssm_apply(tparams, xt, pm.cfg,
-                            state=convert.to_torch(to_numpy(state)))
+                            state=convert.to_torch(to_numpy(state), device="cpu"))
     _close(ot, oj, tol)
     assert st["conv"].dtype == TORCH_DT[dtype]
     assert st["h"].dtype == torch.float32
@@ -201,7 +201,7 @@ def test_decode_step_from_reference_cache():
     jm, pm = build_model(cfg), build_port_model(port_config(cfg))
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 9))
     _, cj = jm.prefill(jp, jnp.asarray(toks[:, :8]), max_len=12)
-    ct = convert.to_torch(to_numpy(cj))
+    ct = convert.to_torch(to_numpy(cj), device="cpu")
     tok = toks[:, 8:9]
     for i in range(8, 10):
         lj, cj = jm.decode_step(jp, jnp.asarray(tok), cj, jnp.int32(i))

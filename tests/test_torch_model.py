@@ -96,7 +96,7 @@ def test_decode_step_from_reference_cache(arch, dtype):
     jm, jp, pm, pp = models(arch, dtype)
     toks = _tokens(jm.cfg, (2, 9), 3)
     _, cj = jm.prefill(jp, jnp.asarray(toks[:, :8]), max_len=12)
-    ct = convert.to_torch(to_numpy(cj))
+    ct = convert.to_torch(to_numpy(cj), device="cpu")
     for i in range(8, 10):
         tok = toks[:, 8:9] if i == 8 else np.argmax(f32(lt), -1)[:, None]
         lj, cj = jm.decode_step(jp, jnp.asarray(tok), cj, jnp.int32(i))

@@ -35,7 +35,7 @@ def _setup(cfg, S, seed=0):
     params = jmoe.moe_init(jax.random.PRNGKey(seed), cfg)
     x = np.random.default_rng(seed + 1).standard_normal(
         (1, S, cfg.d_model)).astype(np.float32)
-    return params, convert.to_torch(to_numpy(params)), x
+    return params, convert.to_torch(to_numpy(params), device="cpu"), x
 
 
 def _reference_slots(params, x, cfg):

@@ -291,7 +291,7 @@ def test_decode_step_from_reference_cache(f32_models):
     jm, jp, pm, pp = f32_models
     toks = np.random.default_rng(13).integers(0, jm.cfg.vocab_size, (2, 10))
     _, cj = jm.prefill(jp, jnp.asarray(toks[:, :8]), max_len=12)
-    ct = convert.to_torch(to_numpy(cj))
+    ct = convert.to_torch(to_numpy(cj), device="cpu")
     for i in (8, 9):
         tok = toks[:, i:i + 1]
         lj, cj = jm.decode_step(jp, jnp.asarray(tok), cj, jnp.int32(i))

@@ -33,7 +33,7 @@ def models(arch: str, dtype: str = "bfloat16", seed: int = 0):
     jm = build_model(cfg)
     jp = jm.init(jax.random.PRNGKey(seed))
     pm = build_port_model(port_config(cfg))
-    pp = convert.to_torch(to_numpy(jp))
+    pp = convert.to_torch(to_numpy(jp), device="cpu")
     return jm, jp, pm, pp
 
 
