@@ -10,7 +10,8 @@ Phases, each printing one JSON line (and failing the run on any error):
      selective scan (K3) and the grouped expert GEMM (K2); count each
      kernel function's HGMMA (wgmma) and UTMALDG (TMA load) instructions
      in the built code, and fail unless K1's and K2's wgmma bodies have
-     both;
+     both; record ptxas's registers and spills for each kernel function
+     and fail if any K4 body spills;
   3. hold K1 against its plain PyTorch version on the card over head dims
      16..256, MHA/GQA/MQA, ragged S, window and softcap (each case records
      the body it took), and time it at Phi-4-mini's prefill shapes (S = 37,
@@ -20,12 +21,15 @@ Phases, each printing one JSON line (and failing the run on any error):
      each backend that takes the call, with the one the default picks) and
      the card's bound;
   4. hold K4 against its plain version over the reference test's shapes,
-     ragged S, float32 and bf16 preactivations, m0 = -1e30 and -inf, a
-     nonzero initial state and xLSTM 1.3B's full width, and time it there;
+     ragged S, S = 1, B up to 4, head dims 16 to 512, float32 and bf16
+     preactivations, m0 = -1e30 and -inf, a nonzero initial state and
+     xLSTM 1.3B's full width, and time it there;
   5. hold K3 against its plain version over the reference test's shapes,
-     an initial state, ragged S, a d that no block divides, the model's
-     mixed dtypes (dt float32) and Jamba's full width, each in float32 and
-     in bf16, and time it at full width;
+     an initial state, ragged S (1, 37, 100, 513), a d that no block
+     divides, the model's mixed dtypes (dt float32) and Jamba's full
+     width, each in float32 and in bf16, and time it at full width beside
+     a bound that counts bytes, fp32 operations and the exp unit (at the
+     card's maximum SM clock, read by nvidia-smi);
   5a. hold K2 against its plain version over the reference test's shapes,
      ragged M, N and K, M = 1, 4, 300 and 320, Granite's and Jamba's
      prefill shapes and Jamba's decode shape, in float32 and bf16, and time
@@ -52,12 +56,12 @@ Phases, each printing one JSON line (and failing the run on any error):
  11. the Jamba token check: one group of 8 layers (7 Mamba, 1 attention,
      4 MoE) at full width in float32, 3 lanes, against single-stream greedy
      decoding through the plain path.
-Every serving phase also checks that each K1 and K2 launch took the wgmma
-body (``launches_by_body``). Each phase runs under a deadline: a phase
-that hangs ends the run with an error. Then a line with the count of
-timings taken again after a host stall, a line with the kernel table, and
-last the device line. Exits nonzero without a CUDA device or without
-the repo's sources beside it.
+Every serving phase also checks that each launch took its main-path body
+(``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3.
+Each phase runs under a deadline: a phase that hangs ends the run with an
+error. Then a line with the count of timings taken again after a host
+stall, a line with the kernel table, and last the device line. Exits
+nonzero without a CUDA device or without the repo's sources beside it.
 """
 from __future__ import annotations
 
@@ -84,6 +88,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by dtype
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# exponentials a clock per SM (MUFU.EX2; CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0)
+EXP_PER_CLOCK_PER_SM = 16
 # allclose tolerances (atol = rtol). bf16 at 2e-2, the reference kernel
 # tests' tolerance: K1 rounds P to bf16 for the tensor cores and both round
 # the output to bf16, so they differ by about one bf16 ulp of the output
@@ -200,26 +207,54 @@ def sass_counts(library: Path) -> dict:
     Functions are named by cu++filt, without their parameters."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    def tool(name, *args, stdin=None):
-        return subprocess.run(
-            [os.path.join(CUDA_HOME, "bin", name), *args], input=stdin,
-            capture_output=True, text=True, check=True).stdout
-
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(library)],
+        capture_output=True, text=True, check=True).stdout
     counts, cur = {}, None
-    for line in tool("cuobjdump", "-sass", str(library)).splitlines():
+    for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = counts.setdefault(m.group(1), {"HGMMA": 0, "UTMALDG": 0})
         elif cur is not None:
             for op in cur:
                 cur[op] += op in line
-    names = tool("cu++filt", "-p", stdin="\n".join(counts)).splitlines()
-    return dict(zip(names, counts.values()))
+    return dict(zip(demangle(counts), counts.values()))
+
+
+def ptxas_functions(report: str) -> dict:
+    """{kernel function (mangled): {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}} from ptxas's -v report."""
+    funcs, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^'\s]+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return funcs
+
+
+def demangle(names) -> list:
+    """Kernel function names by cu++filt, without their parameters."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    return subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cu++filt"), "-p"],
+        input="\n".join(names), capture_output=True, text=True,
+        check=True).stdout.splitlines()
 
 
 def phase_build(kernels):
     """Build every kernel, one nvcc process each, all started together;
-    count the wgmma and TMA instructions of each kernel function."""
+    count the wgmma and TMA instructions of each kernel function; fail if
+    a body of K4 spills (R would then sit in local memory)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.build import BUILD_DIR
@@ -235,12 +270,17 @@ def phase_build(kernels):
         seconds = dict(pool.map(build, kernels.items()))
     for name in kernels:
         ptxas = BUILD_DIR / f"{name}.ptxas.txt"
-        lines = [ln.strip() for ln in ptxas.read_text().splitlines()
-                 if "registers" in ln or "spill" in ln] if ptxas.exists() \
-            else []
+        funcs = ptxas_functions(ptxas.read_text()) if ptxas.exists() else {}
+        funcs = dict(zip(demangle(funcs), funcs.values()))
         sass = sass_counts(BUILD_DIR / f"{name}.so")
         emit({"phase": "build", "kernel": name, "seconds": seconds[name],
-              "ptxas": lines, "sass": sass})
+              "ptxas": funcs, "sass": sass})
+        if name == "slstm_scan" and not (funcs and all(
+                r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                for r in funcs.values())):
+            raise AssertionError(f"slstm_scan: a body spills (R would sit "
+                                 f"in local memory) or none was built: "
+                                 f"{funcs}")
         wgmma = {f: c for f, c in sass.items() if "wgmma" in f}
         if name in ("flash_attention", "expert_gemm") and not (
                 wgmma and all(c["HGMMA"] and c["UTMALDG"]
@@ -388,6 +428,8 @@ def phase_slstm_check(slstm_kernel, slstm_scan_ref, seed: int):
              ("ragged_S37_minf", 1, 37, 2, 32, -math.inf, False),
              ("ragged_S300", 2, 300, 4, 16, -1e30, False),
              ("state_dh24", 3, 50, 2, 24, 0.0, True),
+             ("b4_dh128_S1_minf", 4, 1, 4, 128, -math.inf, False),
+             ("b2_dh64_S37_state", 2, 37, 2, 64, 0.0, True),
              ("xlstm_full", 1, 512, 4, 512, -1e30, False)]
     timed = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -418,7 +460,7 @@ def phase_slstm_check(slstm_kernel, slstm_scan_ref, seed: int):
             rec = {"phase": "slstm_check", "case": label,
                    "dtype": str(dtype).split(".")[1], "B": B, "S": S,
                    "H": H, "dh": dh, "m0": str(m0), "nonzero_state": nonzero,
-                   "max_abs_err": err, "tol": TOL[dtype],
+                   "body": "regs", "max_abs_err": err, "tol": TOL[dtype],
                    "state_max_abs_err": state_err, "state_tol": 1e-5,
                    "ok": ok}
             if label == "xlstm_full":
@@ -444,21 +486,34 @@ def phase_slstm_check(slstm_kernel, slstm_scan_ref, seed: int):
     return timed
 
 
-def ssm_bound(Bb, S, d, N, u_dtype, dt_dtype):
-    """Least time (ms) of the selective scan: bytes (u, dt, B, C, A, D and
-    h0 read once, y and h_last written once) over HBM rate vs ~6 fp32
-    operations per (t, channel, n) over the fp32 peak. Also returns the
-    exps it takes (one per (t, channel, n))."""
+def sm_clock_max_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ssm_bound(Bb, S, d, N, u_dtype, dt_dtype, sms, clock_hz):
+    """Least time (ms) of the selective scan: the largest of bytes (u, dt,
+    B, C, A, D and h0 read once, y and h_last written once) over HBM rate,
+    ~6 fp32 operations per (t, channel, n) over the fp32 peak, and one
+    exponential per (t, channel, n) over the exp unit's rate (MUFU: 16 a
+    clock per SM, CUDA C++ Programming Guide, arithmetic instructions, cc
+    9.0) at ``sms`` SMs and the maximum SM clock. Also returns which term
+    binds ("bytes", "fp32" or "exp"), the bytes, FLOPs and exps."""
     eu = torch.finfo(u_dtype).bits // 8
     edt = torch.finfo(dt_dtype).bits // 8
     nbytes = (eu * 2 * Bb * S * d + edt * Bb * S * d + eu * 2 * Bb * S * N
               + 4 * (d * N + d) + 4 * 2 * Bb * d * N)
     exps = Bb * S * d * N
     flops = 6 * exps
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[torch.float32]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops,
-            exps)
+    terms = {"bytes": nbytes / PEAK_BYTES_S,
+             "fp32": flops / PEAK_FLOPS[torch.float32],
+             "exp": exps / (EXP_PER_CLOCK_PER_SM * sms * clock_hz)}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, term, nbytes, flops, exps
 
 
 def phase_ssm_check(ssm_kernel, ssm_scan_ref, seed: int):
@@ -473,6 +528,8 @@ def phase_ssm_check(ssm_kernel, ssm_scan_ref, seed: int):
              ("ragged_S100", 2, 100, 128, 16, True, False),
              ("d200", 1, 20, 200, 16, True, False),
              ("model_dtypes", 2, 64, 256, 16, True, True),
+             ("S1_n4", 2, 1, 100, 4, True, True),
+             ("S513_d1000", 1, 513, 1000, 16, True, True),
              ("jamba_full", 1, 512, 8192, 16, True, True)]
     timed = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -504,6 +561,7 @@ def phase_ssm_check(ssm_kernel, ssm_scan_ref, seed: int):
                    "dtype": str(dtype).split(".")[1],
                    "dt_dtype": str(dt_dtype).split(".")[1], "Bb": Bb,
                    "S": S, "d": d, "N": N, "initial_state": with_h0,
+                   "body": "ring",
                    "max_abs_err": err, "tol": TOL[dtype],
                    "state_max_abs_err": h_err, "state_tol": 1e-5, "ok": ok}
             if label == "jamba_full":
@@ -515,9 +573,12 @@ def phase_ssm_check(ssm_kernel, ssm_scan_ref, seed: int):
                 rec["kernel_ms"] = cuda_ms(lambda: ssm_kernel(*args))
                 rec["plain_ms"] = cuda_ms(lambda: ssm_scan_ref(*args),
                                           iters=3, warmup=1)
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                clock = sm_clock_max_hz()
+                rec["sms"], rec["sm_clock_max_mhz"] = sms, clock / 1e6
                 (rec["bound_ms"], rec["bound_by"], rec["bound_bytes"],
                  rec["bound_flops"], rec["exps"]) = ssm_bound(
-                    Bb, S, d, N, dtype, dt_dtype)
+                    Bb, S, d, N, dtype, dt_dtype, sms, clock)
                 rec["library_ms"] = None
                 rec["library_note"] = SSM_LIBRARY_NOTE
                 timed = rec
@@ -617,13 +678,18 @@ def phase_gemm_check(expert_kernel, expert_gemm_ref, body_for, seed: int):
     return timed
 
 
+# the body every launch of a kernel takes on the serving paths
+SERVE_BODY = {"flash_attention": "wgmma", "expert_gemm": "wgmma",
+              "slstm_scan": "regs", "ssm_scan": "ring"}
+
+
 def phase_serve(cfg, seed: int, lens_range, per_request: dict,
                 plain_iters: int = 3):
     """Serve 16 requests of the full-width model ``cfg`` on 8 lanes; every
     prefill must launch each kernel ``per_request[name]`` times (and any
-    other kernel never), K1 and K2 always in their wgmma body. Then the
-    breakdown of one prefill and one decode step. Returns the launch
-    counts and the counts by body."""
+    other kernel never), each always in its main-path body
+    (``SERVE_BODY``). Then the breakdown of one prefill and one decode
+    step. Returns the launch counts and the counts by body."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
@@ -672,8 +738,8 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     by_body = {name: dict(k.launches_by_body)
                for name, k in ops.KERNELS.items()}
     expected = {name: per_request.get(name, 0) * n_req for name in counts}
-    want_body = {name: {"wgmma": expected[name]} if expected[name] else {}
-                 for name in ("flash_attention", "expert_gemm")}
+    want_body = {name: {body: expected[name]} if expected[name] else {}
+                 for name, body in SERVE_BODY.items()}
     toks = [t for r in reqs for t in r.output]
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params,
@@ -897,8 +963,8 @@ def main() -> int:
                             (32, 768), {"flash_attention": 32})
     tokens("phi4", two_layers("phi4_mini_3_8b"), args.seed,
            plain_kernel_path=False)
-    xlstm, _ = serve("xlstm", get_config("xlstm_1_3b"), args.seed,
-                     (32, 512), {"slstm_scan": 24}, plain_iters=1)
+    xlstm, xlstm_body = serve("xlstm", get_config("xlstm_1_3b"), args.seed,
+                              (32, 512), {"slstm_scan": 24}, plain_iters=1)
     tokens("xlstm", two_layers("xlstm_1_3b"), args.seed,
            plain_kernel_path=True)
     # Granite-MoE at full width and depth: every layer attention + MoE
@@ -952,8 +1018,11 @@ def main() -> int:
         "source": str(slstm_scan.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/slstm_scan.py:76",
         "launches": xlstm["slstm_scan"],
+        "launches_by_body": {"xlstm": xlstm_body["slstm_scan"]},
         "max_abs_err": slstm_timed["max_abs_err"],
-        "ms": slstm_timed["kernel_ms"], "plain_ms": slstm_timed["plain_ms"],
+        "ms": slstm_timed["kernel_ms"],
+        "ms_per_step": slstm_timed["ms_per_step"],
+        "plain_ms": slstm_timed["plain_ms"],
         "bound_ms": slstm_timed["bound_ms"],
         "bound_by": slstm_timed["bound_by"], "library_ms": None,
         "library_note": LSTM_LIBRARY_NOTE,
@@ -962,10 +1031,15 @@ def main() -> int:
         "source": str(ssm_scan.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/kernels/ssm_scan.py:46",
         "launches": jamba["ssm_scan"],
+        "launches_by_body": {"jamba": jamba_body["ssm_scan"]},
         "max_abs_err": ssm_timed["max_abs_err"],
         "ms": ssm_timed["kernel_ms"], "plain_ms": ssm_timed["plain_ms"],
         "bound_ms": ssm_timed["bound_ms"],
-        "bound_by": ssm_timed["bound_by"], "library_ms": None,
+        "bound_by": ("bytes" if ssm_timed["bound_by"] == "bytes"
+                     else "operations"),
+        "bound_term": ssm_timed["bound_by"],
+        "sm_clock_max_mhz": ssm_timed["sm_clock_max_mhz"],
+        "library_ms": None,
         "library_note": SSM_LIBRARY_NOTE,
         "shape": "Bb=1 S=512 d=8192 N=16, u/B/C bf16, dt fp32 (Jamba)"}, {
         "name": "expert_gemm", "route": "cuda",

@@ -5,7 +5,9 @@ the sLSTM cell, all in float32. It is the CPU path and the yardstick the
 kernel is held against. ``SlstmScanKernel`` builds ``csrc/slstm_scan.cu``
 for ``sm_90a`` at first use (``kernels/build.py``), loads it with
 ``ctypes`` and launches it on PyTorch's current stream, one cooperative
-launch for all S steps. ``slstm_kernel.launches`` counts the launches.
+launch for all S steps, in its one body, ``"regs"`` (R in registers, h
+exchanged between blocks as tagged words). ``slstm_kernel.launches``
+counts the launches.
 
 Replaces ``repro/kernels/slstm_scan.py::slstm_scan_fwd``.
 """
@@ -20,8 +22,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import KernelLibrary
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "slstm_scan.cu"
-MAX_HEAD_DIM = 512     # the R slice of one block fills shared memory
-MAX_BATCH = 32         # one state-owning thread per (batch row, column)
+MAX_HEAD_DIM = 512     # a lane's R slice fills half its registers
+MAX_BATCH = 32         # one state-owning lane per (batch row, column)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -63,7 +65,7 @@ class SlstmScanKernel(KernelLibrary):
 
     def _bind(self, lib) -> None:
         fn = lib.slstm_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
@@ -79,13 +81,13 @@ class SlstmScanKernel(KernelLibrary):
         hs = torch.empty((B, S, d), dtype=pre.dtype, device=dev)
         cT, nT, mT, hT = (torch.empty((B, H, dh), dtype=torch.float32,
                                       device=dev) for _ in range(4))
-        hbuf = torch.empty((2, B, H, dh), dtype=torch.float32, device=dev)
-        bar = torch.zeros((H,), dtype=torch.int32, device=dev)
+        # h's exchange between blocks: tagged words, starting at tag 0
+        xchg = torch.zeros((2, B, H, dh), dtype=torch.int64, device=dev)
         info = (ctypes.c_int * 3)()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.slstm_scan_fwd(
             *(t.data_ptr() for t in (pre, r_all, c0, n0, m0, h0, hs, cT, nT,
-                                     mT, hT, hbuf, bar)),
+                                     mT, hT, xchg)),
             _DTYPE_CODES[pre.dtype], B, S, H, dh, info, stream)
         if err == -1:
             raise RuntimeError(
@@ -94,7 +96,7 @@ class SlstmScanKernel(KernelLibrary):
         if err != 0:
             raise RuntimeError(f"slstm_scan_fwd launch failed: CUDA error "
                                f"{err}")
-        self._count("fma")
+        self._count("regs")
         return hs, (cT, nT, mT, hT)
 
 

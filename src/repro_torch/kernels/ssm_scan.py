@@ -6,7 +6,8 @@ in float32. It is the CPU path and the yardstick the kernel is held
 against. ``SsmScanKernel`` builds ``csrc/ssm_scan.cu`` for ``sm_90a`` at
 first use (``kernels/build.py``), loads it with ``ctypes`` and launches it
 on PyTorch's current stream, one launch for all S steps.
-``ssm_kernel.launches`` counts the launches.
+``ssm_kernel.launches`` counts the launches, all in its one body,
+``"ring"`` (chunks of u/dt/B/C double-buffered ahead of the compute).
 
 Replaces ``repro/kernels/ssm_scan.py::ssm_scan_fwd``.
 """
@@ -54,8 +55,8 @@ class SsmScanKernel(KernelLibrary):
 
     def _bind(self, lib) -> None:
         fn = lib.ssm_scan_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
 
     def __call__(self, u, dt, A, B, C, D, h0=None):
@@ -69,16 +70,16 @@ class SsmScanKernel(KernelLibrary):
             h0 = h0.contiguous()
         y = torch.empty((Bb, S, d), dtype=u.dtype, device=u.device)
         h_last = torch.empty((Bb, d, N), dtype=_F32, device=u.device)
-        flags = (ctypes.c_int * 4)(*(int(t.dtype == torch.bfloat16)
-                                     for t in (u, dt, B, C)))
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = lib.ssm_scan_fwd(
             *(t.data_ptr() for t in (u, dt, A, B, C, D)),
             None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), h_last.data_ptr(), Bb, S, d, N, flags, stream)
+            y.data_ptr(), h_last.data_ptr(), Bb, S, d, N,
+            int(u.dtype == torch.bfloat16), int(dt.dtype == torch.bfloat16),
+            stream)
         if err != 0:
             raise RuntimeError(f"ssm_scan_fwd launch failed: CUDA error {err}")
-        self._count("fma")
+        self._count("ring")
         return y, h_last
 
 
@@ -93,6 +94,9 @@ def _check(u, dt, A, B, C, D, h0):
         if t.dtype not in _IN_DTYPES:
             raise ValueError(f"{name} is {t.dtype}: the kernel takes float32 "
                              "or bfloat16")
+    if B.dtype != u.dtype or C.dtype != u.dtype:
+        raise ValueError(f"B {B.dtype} and C {C.dtype} must be in u's dtype "
+                         f"{u.dtype}")
     for name, t in (("A", A), ("D", D), ("h0", h0)):
         if t is not None and t.dtype != _F32:
             raise ValueError(f"{name} must be float32, not {t.dtype}")

@@ -3,7 +3,8 @@ staleness check. Pure functions of dtype, shape, strides and alignment
 (``flash_attention._body_for``, ``expert_gemm._body_for``), checked on the
 CPU with meta tensors where the main path's shapes would be large; the
 launches themselves are held against the plain versions on the card
-(test_torch_flash_attention_gpu.py, test_torch_expert_gemm_gpu.py)."""
+(test_torch_flash_attention_gpu.py, test_torch_expert_gemm_gpu.py). Also:
+the scan kernels' timing variants still patch their sources."""
 import os
 import time
 
@@ -12,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import expert_gemm, flash_attention  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    expert_gemm, flash_attention, slstm_scan, ssm_scan, variants)
 from repro_torch.kernels.build import KernelLibrary  # noqa: E402
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -105,6 +107,20 @@ def test_expert_gemm_float32_and_misaligned_bases():
     assert expert_gemm._body_for(x_off, _meta(2, 64, 64)) == "mma_sync"
     assert expert_gemm._body_for(buf[:-1].view(2, 8, 64),
                                  _meta(2, 64, 64)) == "wgmma"
+
+
+@pytest.mark.parametrize("kernel,table", [
+    (slstm_scan.SlstmScanKernel, variants.SLSTM_VARIANTS),
+    (ssm_scan.SsmScanKernel, variants.SSM_VARIANTS),
+])
+def test_timing_variants_patch_the_sources(kernel, table):
+    """Every timing variant's replacements match its kernel's source
+    exactly once, and a replacement that does not match is refused."""
+    for label, _, patches in table:
+        text = variants.patched(kernel.source, patches)
+        assert all(new in text for _, new in patches), label
+    with pytest.raises(ValueError):
+        variants.patched(kernel.source, [("no such line", "")])
 
 
 def test_launch_counts_split_by_body():

@@ -75,6 +75,29 @@ def test_kernel_matches_plain_on_card(dtype, B, S, H, dh, m0, nonzero_state):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 37, 512])
+@pytest.mark.parametrize("dh", [64, 128, 512])
+@pytest.mark.parametrize("B", [1, 2, 4])
+def test_kernel_at_its_edges(B, dh, S):
+    """Batch rows, head dims from one float4 round a lane (half the lanes
+    padded at 64) to four, one step to xLSTM's prompt length, from
+    m0 = -inf; float32, so at 1e-5. Every launch counts as the regs
+    body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    args = _inputs(B, S, 2, dh, torch.float32, -math.inf, False,
+                   seed=7 * S + dh + B)
+    before = slstm_kernel.launches_by_body.get("regs", 0)
+    hs, state = ops.slstm_scan(*args)
+    torch.cuda.synchronize()
+    assert slstm_kernel.launches_by_body["regs"] == before + 1
+    hs_ref, state_ref = slstm_scan_ref(*args)
+    torch.testing.assert_close(hs, hs_ref, atol=1e-5, rtol=1e-5)
+    for got, want in zip(state, state_ref):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card with CUDA")

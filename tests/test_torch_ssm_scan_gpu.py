@@ -73,6 +73,29 @@ def test_kernel_matches_plain_on_card(dtype, Bb, S, d, N, with_h0, dt_f32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8192, 1000])
+@pytest.mark.parametrize("S", [1, 513])
+@pytest.mark.parametrize("N", [4, 8, 16])
+def test_ring_body_at_its_edges(dtype, N, S, d):
+    """The ring body over its lane splits (N = 4, 8, 16: one, two, four
+    states a lane), one step and a chunk past 512, Jamba's width and a
+    width no block of 32 channels divides; dt float32 as in the model."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    dt_ = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    args = _inputs(1, S, d, N, dt_, torch.float32, True, seed=S + d + N)
+    before = ssm_kernel.launches_by_body.get("ring", 0)
+    y, h = ops.ssm_scan(*args[:6], h0=args[6])
+    torch.cuda.synchronize()
+    assert ssm_kernel.launches_by_body["ring"] == before + 1
+    y_ref, h_ref = ssm_scan_ref(*args[:6], h0=args[6])
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=TOL[dt_],
+                               rtol=TOL[dt_])
+    torch.testing.assert_close(h, h_ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card with CUDA")
@@ -84,6 +107,8 @@ def test_kernel_refuses_what_it_does_not_take():
         ssm_kernel(u, dt, A.cpu(), B, C, D, h0)
     with pytest.raises(ValueError):
         ssm_kernel(u, dt, A.double(), B, C, D, h0)
+    with pytest.raises(ValueError):      # B in another dtype than u
+        ssm_kernel(u, dt, A, B.bfloat16(), C, D, h0)
     with pytest.raises(ValueError):      # N above what the kernel holds
         big = torch.zeros((32, 65), device="cuda")
         ssm_kernel(u, dt, big, torch.zeros((1, 8, 65), device="cuda"),
