@@ -55,7 +55,22 @@ Phases, each printing one JSON line (and failing the run on any error):
      attention prefill through K1, every MoE prefill product through K2);
  11. the Jamba token check: one group of 8 layers (7 Mamba, 1 attention,
      4 MoE) at full width in float32, 3 lanes, against single-stream greedy
-     decoding through the plain path.
+     decoding through the plain path;
+ 12. train_check: two float32 train steps of Phi-4-mini at full width and
+     2 layers on the card and on the CPU from the same weights and
+     batches: loss, grad norm and parameters agree;
+ 13. train: full-width, full-depth Phi-4-mini 3.8B in bf16 for 5 steps
+     and Granite-MoE 1B-A400M for 3, at RunConfig's defaults (seq 512,
+     batch 8) through launch/train.py's loop and TokenPipeline: loss, grad
+     norm, lr and ms a step, tokens/s, peak memory and the model-FLOP
+     share of the card's bf16 peak, then a breakdown of one more step
+     (forward, backward, AdamW; the device's busy share). Fails on a
+     non-finite loss, a grad norm <= 0, parameters no step changed, a
+     Granite aux loss that is not finite and > 0, or any kernel launch
+     (the kernels are forward-only; training takes the plain paths);
+ 14. checkpoint: a train state of the Phi-4-mini smoke config saved from
+     the card by CheckpointManager and restored into a fresh state on the
+     card, every leaf bit-equal and every digest matching.
 Every serving phase also checks that each launch took its main-path body
 (``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3.
 Each phase runs under a deadline: a phase that hangs ends the run with an
@@ -913,6 +928,327 @@ def _leaves(tree):
             yield v
 
 
+# the card's dense bf16 peak (H100 SXM data sheet), the model-FLOP share's
+# yardstick
+TRAIN_PEAK = ("H100 SXM dense bf16", PEAK_FLOPS[torch.bfloat16])
+# train_check: the card's and the CPU's float32 steps agree in loss and grad
+# norm to 1e-4 relative (matmuls sum in another order: 7.5e-8 measured on
+# the H100), and in every parameter to 5e-5. Two steps at lr 1e-4 move a
+# parameter by up to 2e-4; Adam's normalised update is ~±1 wherever the
+# gradient is not tiny, but an element whose gradient is near the rounding
+# noise of its sums may move differently on the two devices (9.2e-6
+# measured, full-width phi4 at 2 layers)
+TRAIN_CHECK_RTOL, TRAIN_CHECK_PARAM_TOL = 1e-4, 5e-5
+
+
+def train_flops(cfg, batch: int, seq: int, n_params: int) -> dict:
+    """Model FLOPs of one train step: 6 x active parameters x tokens for
+    the weight matmuls (forward and backward; an MoE layer's active experts
+    are its top-k, not every expert over its capacity as the einsum path
+    computes them), plus the attention score products QK^T and PV over
+    every (query, key) pair the plain path computes, three times over for
+    forward and backward (12 L B S^2 Hq hd, PaLM's count). Recomputation
+    under remat is not counted."""
+    tokens = batch * seq
+    m, d = cfg.moe, cfg.d_model
+    nmat = 3 if cfg.act in ("swiglu", "geglu") else 2
+    idle_experts = sum(nmat * d * m.d_expert * (m.n_experts - m.top_k)
+                       for i in range(cfg.n_layers) if cfg.layer_is_moe(i))
+    attn_layers = sum(cfg.layer_kind(i) == "attn"
+                      for i in range(cfg.n_layers))
+    active = n_params - idle_experts
+    dense = 6 * active * tokens
+    attn = 12 * attn_layers * batch * seq * seq * cfg.n_heads * (
+        cfg.resolved_head_dim)
+    return {"tokens": tokens, "active_params": active,
+            "weight_flops": dense, "attention_flops": attn,
+            "flops": dense + attn}
+
+
+def _samples(params, n: int = 1 << 20) -> list:
+    """Up to n evenly spaced elements of every leaf, copied: enough to see
+    which leaves a step changed without a second copy of the model."""
+    out = []
+    for t in _leaves(params):
+        flat = t.detach().reshape(-1)
+        out.append(flat[::max(1, flat.numel() // n)].clone())
+    return out
+
+
+def _changed(params, before) -> dict:
+    """Share of the sampled elements that changed, by leaf dtype."""
+    moved, total = {}, {}
+    for t, b in zip(_leaves(params), before):
+        flat = t.detach().reshape(-1)
+        now = flat[::max(1, flat.numel() // (1 << 20))]
+        key = str(t.dtype).split(".")[1]
+        moved[key] = moved.get(key, 0) + int((now != b).sum())
+        total[key] = total.get(key, 0) + b.numel()
+    return {k: moved[k] / total[k] for k in total}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_train_check(cfg, seed: int, device="cuda"):
+    """Two float32 train steps of ``cfg`` on ``device`` (the card) and on
+    the CPU from the same weights and batches: loss, grad norm and every
+    parameter agree."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import build_train_step, init_train_state
+
+    run = RunConfig(model=cfg, seq_len=128, global_batch=2, seed=seed,
+                    learning_rate=1e-4, warmup_steps=1, total_steps=10)
+    source = SyntheticTokens(cfg.vocab_size, run.seq_len, run.global_batch,
+                             seed=seed)
+    gpu = init_train_state(cfg, run, device)
+    cpu = {"params": {k: _to_cpu(v) for k, v in gpu["params"].items()}}
+    cpu["opt"] = type(gpu["opt"])(*(_to_cpu(x) for x in gpu["opt"]))
+    steps = {"device": build_train_step(cfg, run=run, device=device),
+             "cpu": build_train_step(cfg, run=run, device="cpu")}
+    rec = {"phase": "train_check", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "B": run.global_batch, "S": run.seq_len, "steps": []}
+    for i in range(2):
+        batch = source.batch_at(i)
+        t0 = time.perf_counter()
+        gpu, mg = steps["device"](gpu, batch)
+        _sync(device)
+        t1 = time.perf_counter()
+        cpu, mc = steps["cpu"](cpu, batch)
+        t2 = time.perf_counter()
+        rec["steps"].append({k: (float(mg[k]), float(mc[k])) for k in (
+            "loss", "grad_norm", "lr")} | {"device_s": t1 - t0,
+                                           "cpu_s": t2 - t1})
+    param_err = max(float((a.detach().float().cpu() - b.detach().float())
+                          .abs().max())
+                    for a, b in zip(_leaves(gpu["params"]),
+                                    _leaves(cpu["params"])))
+    rel = max(abs(g - c) / abs(c) for st in rec["steps"]
+              for g, c in (st["loss"], st["grad_norm"]))
+    ok = rel <= TRAIN_CHECK_RTOL and param_err <= TRAIN_CHECK_PARAM_TOL
+    rec.update({"max_rel_err_loss_grad_norm": rel, "rtol": TRAIN_CHECK_RTOL,
+                "max_abs_param_err": param_err,
+                "param_tol": TRAIN_CHECK_PARAM_TOL, "ok": ok})
+    emit(rec)
+    del gpu, cpu
+    _empty_cache(device)
+    if not ok:
+        raise AssertionError(f"train step on the card disagrees with the "
+                             f"CPU: {rec}")
+
+
+def _empty_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def phase_train(cfg, seed: int, steps: int, device="cuda", run=None):
+    """Train ``cfg`` for ``steps`` steps at RunConfig's defaults (seq 512,
+    batch 8, lr 3e-4 with 100 warmup steps) through launch/train.py's loop,
+    batches from TokenPipeline over SyntheticTokens. Fails on a non-finite
+    loss, a grad norm <= 0, a parameter dtype none of whose sampled
+    elements changed, or any kernel launch (training is forward-only for
+    the kernels: plain paths)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.launch.train import train
+
+    run = run or RunConfig(model=cfg, seed=seed)
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.time()
+    state = init_train_state(cfg, run, device)
+    _sync(device)
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(state["params"]))
+    moment_bytes = 2 * sum(t.numel() * t.element_size()
+                           for t in _leaves(state["opt"].m))
+    before = _samples(state["params"])
+    flops = train_flops(cfg, run.global_batch, run.seq_len, n_params)
+    records = []
+
+    def on_step(step, metrics, ms):
+        rec = {"step": step + 1, "ms": ms, **{
+            k: float(metrics[k]) for k in ("loss", "ce", "aux", "grad_norm",
+                                           "lr")}}
+        rec["tokens_per_s"] = flops["tokens"] / (ms / 1e3)
+        rec["model_flop_share"] = flops["flops"] / (ms / 1e3) / TRAIN_PEAK[1]
+        records.append(rec)
+
+    for kernel in ops.KERNELS.values():
+        kernel.reset_counts()
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state, losses = train(cfg, run, steps, device=device,
+                          log_every=steps + 1, on_step=on_step, state=state)
+    _sync(device)
+    launches = ops.launch_counts()
+    changed = _changed(state["params"], before)
+    source_batch = SyntheticTokens(cfg.vocab_size, run.seq_len,
+                                   run.global_batch,
+                                   seed=run.seed).batch_at(steps)
+    breakdown = train_breakdown(cfg, run, state, source_batch, device)
+    later = records[1:]
+    rec = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params, "dtype": cfg.dtype,
+           "remat": cfg.remat, "batch": run.global_batch,
+           "seq_len": run.seq_len, "init_s": init_s,
+           "param_bytes": param_bytes, "grad_bytes": param_bytes,
+           "moment_bytes": moment_bytes, "steps": records,
+           "ms_after_first": (sum(r["ms"] for r in later) / len(later)
+                              if later else None),
+           "tokens_per_s_after_first": (
+               sum(r["tokens_per_s"] for r in later) / len(later)
+               if later else None),
+           **flops, "peak_flops_name": TRAIN_PEAK[0],
+           "peak_flops": TRAIN_PEAK[1],
+           "model_flop_share_after_first": (
+               sum(r["model_flop_share"] for r in later) / len(later)
+               if later else None),
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if cuda else None),
+           "changed_share_by_dtype": changed, "launches": launches,
+           "breakdown": breakdown}
+    emit(rec)
+    del state
+    _empty_cache(device)
+    bad = [r for r in records if not (math.isfinite(r["loss"])
+                                      and r["grad_norm"] > 0
+                                      and math.isfinite(r["grad_norm"]))]
+    if bad or len(records) != steps:
+        raise AssertionError(f"train steps {bad or records}")
+    if not changed or not all(share > 0 for share in changed.values()):
+        raise AssertionError(f"parameters of some dtype unchanged: "
+                             f"{changed}")
+    if any(launches.values()):
+        raise AssertionError(f"kernel launches while training: {launches}")
+    return rec
+
+
+def train_breakdown(cfg, run, state, batch, device) -> dict:
+    """One more step of ``build_train_step`` under torch.profiler, split by
+    the step's own ranges (``STEP_RANGES``: forward with the loss, backward,
+    AdamW): each range's host interval and, on the card, the device time of
+    the kernels launched inside it. A kernel is placed by its launch, the
+    runtime call (``cudaLaunchKernel``, ``cudaMemcpyAsync``, ...) that shares
+    its correlation id: the backward's launches come from autograd's own
+    thread, inside the main thread's backward range. (The op that encloses
+    a launch is no guide: ops of the two threads can share an id, and a
+    kernel is then listed under both.) Also the whole step's wall time, the
+    device's busy time and share, and its largest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import (STEP_RANGES, batch_to,
+                                          build_train_step)
+
+    cuda = torch.device(device).type == "cuda"
+    step = build_train_step(cfg, run=run, device=device)
+    batch = batch_to(batch, device)
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        _sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    spans = {e.name.split(".")[-1]: e.time_range for e in host
+             if e.name in STEP_RANGES}
+    rec = {"ranges": {name: {"host_ms": span.elapsed_us() / 1e3}
+                      for name, span in spans.items()},
+           "profiled_wall_ms": wall_ms}
+    if not cuda:
+        return rec
+    launched_at = {e.id: e.time_range.start for e in host
+                   if e.name.startswith("cu")}
+    kernels = [e for e in events if e.device_type != DeviceType.CPU
+               and not e.is_user_annotation]
+    by_range, by_name = {}, {}
+    for k in kernels:
+        t = launched_at.get(k.id)
+        where = next((name for name, span in spans.items()
+                      if t is not None and span.start <= t <= span.end),
+                     "outside")
+        ms = k.time_range.elapsed_us() / 1e3
+        by_range[where] = by_range.get(where, 0.0) + ms
+        calls, total = by_name.get(k.name, (0, 0.0))
+        by_name[k.name] = (calls + 1, total + ms)
+    for name in spans:
+        rec["ranges"][name]["device_ms"] = by_range.get(name, 0.0)
+    device_ms = sum(by_range.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    rec.update({
+        "device_ms_outside_ranges": by_range.get("outside", 0.0),
+        "device_busy_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms if device_ms else None,
+        "device_kernels": len(kernels),
+        "top_device_kernels": [{"name": name[:80], "ms": ms, "calls": calls}
+                               for name, (calls, ms) in top]})
+    return rec
+
+
+def phase_checkpoint(cfg, seed: int, device="cuda"):
+    """Save a train state of ``cfg`` (after one step: nonzero moments) from
+    the card with CheckpointManager, wait, restore into a fresh state on
+    the card: every leaf bit-equal, every manifest digest the leaf's."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import _digest, _to_host
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.tree import leaves
+
+    run = RunConfig(model=cfg, seq_len=64, global_batch=2, seed=seed)
+    state = init_train_state(cfg, run, device)
+    state, _ = build_train_step(cfg, run=run, device=device)(
+        state, SyntheticTokens(cfg.vocab_size, 64, 2, seed=seed).batch_at(0))
+    fresh = init_train_state(cfg, RunConfig(model=cfg, seed=seed + 1), device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(1, state, extra={"step": 1})
+        save_s = time.perf_counter() - t0
+        mgr.wait()
+        restored, extra = mgr.restore(fresh)
+        manifest = json.loads((Path(d) / "step_00000001" / "MANIFEST.json")
+                              .read_text())
+    mismatched = sum(not torch.equal(a, b) or a.dtype != b.dtype
+                     for a, b in zip(leaves(state), leaves(restored)))
+    bad_digests = sum(_digest(_to_host(t)[0]) != m["digest"]
+                      for t, m in zip(leaves(restored), manifest["leaves"]))
+    on_device = all(t.device.type == torch.device(device).type
+                    for t in leaves(restored))
+    rec = {"phase": "checkpoint", "arch": cfg.name,
+           "leaves": len(manifest["leaves"]),
+           "bytes": sum(t.numel() * t.element_size() for t in leaves(state)),
+           "dtypes": sorted({m["dtype"] for m in manifest["leaves"]}),
+           "save_call_s": save_s, "extra": extra,
+           "mismatched_leaves": mismatched, "bad_digests": bad_digests,
+           "restored_on_device": on_device}
+    emit(rec)
+    if mismatched or bad_digests or not on_device or extra != {"step": 1}:
+        raise AssertionError(f"checkpoint round trip: {rec}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -923,7 +1259,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import (expert_gemm, flash_attention, ops,
                                      slstm_scan, ssm_scan)
 
@@ -985,6 +1321,22 @@ def main() -> int:
     tokens("jamba", dataclasses.replace(jamba_cfg, n_layers=8,
                                         dtype="float32"),
            args.seed, plain_kernel_path=False)
+
+    # training: the plain paths on the card (no kernel launches), after the
+    # Jamba phases have freed the card
+    torch.cuda.empty_cache()
+    emit({"phase": "train_setup",
+          "memory_allocated": torch.cuda.memory_allocated()})
+    with deadline(240, "train_check"):
+        phase_train_check(two_layers("phi4_mini_3_8b"), args.seed)
+    with deadline(300, "train phi4"):
+        phase_train(get_config("phi4_mini_3_8b"), args.seed, steps=5)
+    with deadline(240, "train granite"):
+        granite_train = phase_train(granite_cfg, args.seed, steps=3)
+    if not all(0 < r["aux"] < float("inf") for r in granite_train["steps"]):
+        raise AssertionError("Granite's MoE aux loss is not finite and > 0")
+    with deadline(120, "checkpoint"):
+        phase_checkpoint(get_smoke_config("phi4_mini_3_8b"), args.seed)
 
     emit({"phase": "timing", "cuda_ms_retakes": CUDA_MS_RETAKES[0]})
     rec = flash_timed[("phi4_S512", torch.bfloat16)]

@@ -1,0 +1,9 @@
+from repro_torch.checkpoint.checkpoint import (
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["CheckpointManager", "latest_step", "load_checkpoint",
+           "save_checkpoint"]

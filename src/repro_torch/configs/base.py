@@ -1,15 +1,18 @@
-"""Model configuration for the PyTorch port.
+"""Model and run configuration for the PyTorch port.
 
 A copy of the reference package's ``ModelConfig`` (field for field, so a
 reference config converts with ``ModelConfig(**dataclasses.asdict(cfg))``)
-with the derived properties the dense serving path reads. Run-time shapes
-and the mesh layer are not part of this slice.
+with its derived properties and analytic parameter count, and of its
+run-time configs: ``ShapeConfig`` (one input-shape cell), the assigned
+shapes and ``RunConfig`` (the trainer's batch, optimizer and schedule). The mesh layer is not part of the port yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import math
 from dataclasses import dataclass, field
+from typing import Any, Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -142,6 +145,97 @@ class ModelConfig:
     def layer_is_moe(self, layer_idx: int) -> bool:
         m = self.moe
         return m.enabled and (layer_idx % m.every == m.offset)
+
+    def param_count(self) -> Dict[str, float]:
+        """Analytic parameter counts (total and active-per-token), the
+        reference's formula (approximate for the xLSTM kinds)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.n_heads, self.n_kv_heads
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total = active = emb
+        for li in range(self.n_layers):
+            kind = self.layer_kind(li)
+            if kind == "attn":
+                blk = d * hd * (nq + 2 * nkv) + nq * hd * d  # qkv + out
+            elif kind == "ssm":
+                s = self.ssm
+                d_in = s.expand * d
+                dtr = s.dt_rank or -(-d // 16)
+                blk = (d * 2 * d_in + d_in * s.d_conv
+                       + d_in * (dtr + 2 * s.d_state) + dtr * d_in
+                       + d_in * s.d_state + d_in + d_in * d)
+            elif kind == "mlstm":
+                d_in = int(self.xlstm.proj_factor_mlstm * d)
+                blk = 2 * d * d_in + d_in * d  # up/gate + down
+                blk += 4 * d_in * (d_in // max(self.n_heads, 1))  # qkv+i/f
+            else:  # slstm
+                d_in = int(self.xlstm.proj_factor_slstm * d)
+                blk = 4 * d * d + 2 * d * d_in  # recurrent gates + ffn
+            total += blk
+            active += blk
+            if kind in ("attn", "ssm") and self.d_ff:
+                nmat = 3 if self.act in ("swiglu", "geglu") else 2
+                if self.layer_is_moe(li):
+                    m = self.moe
+                    per = nmat * d * m.d_expert
+                    total += m.n_experts * per
+                    active += m.top_k * per
+                    if m.dense_residual:
+                        dd = nmat * d * (m.d_dense_residual or self.d_ff)
+                        total += dd
+                        active += dd
+                else:
+                    total += nmat * d * self.d_ff
+                    active += nmat * d * self.d_ff
+        return {"total": float(total), "active": float(active)}
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a step kind at a sequence length and batch."""
+
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+# The four assigned LM shapes.
+ASSIGNED_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """What a training run does besides the model: batch, optimizer and
+    schedule, with the reference's defaults. Only the fields the port's
+    trainer reads: gradient accumulation, gradient compression and the
+    kernels on the training path are not ported, and the checkpoint
+    directory and period are the trainer's own arguments."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    seq_len: int = 512
+    global_batch: int = 8
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k requires sub-quadratic attention (SSM/hybrid families)."""
+    if shape.name == "long_500k":
+        return cfg.family in ("ssm", "hybrid")
+    return True
 
 
 def _module(arch: str):

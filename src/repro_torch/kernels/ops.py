@@ -4,10 +4,18 @@ A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain PyTorch version. Nothing falls back
 from the kernel to the plain version. ``plain_versions`` is a switch for
 checks only: inside it, CUDA tensors take the plain versions too.
+
+Forward-only by design, as in the reference: the kernels have no backward,
+and a kernel bound through ctypes returns outputs with no ``grad_fn``, so
+the parameters upstream of it would get no gradient and no error. Each
+entry point therefore refuses, on either device, an input that requires
+grad while grad mode is on; training runs the models' plain paths.
 """
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 from repro_torch.kernels.expert_gemm import expert_gemm_ref, expert_kernel
 from repro_torch.kernels.flash_attention import flash_attention_ref, flash_kernel
@@ -39,9 +47,19 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def _forward_only(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{name} is forward-only: an input requires grad under grad "
+            "mode, and the kernel would pass no gradient back; training "
+            "takes the plain paths (use_kernel=False)")
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype."""
+    _forward_only("flash_attention", q, k, v)
     if q.is_cuda and not _plain["on"]:
         return flash_kernel(q, k, v, causal=causal, window=window,
                             softcap=softcap)
@@ -52,6 +70,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 def slstm_scan(pre, r_all, c0, n0, m0, h0):
     """pre: [B,S,4,d]; r_all: [4,H,dh,dh]; c0/n0/m0/h0: [B,H,dh] float32.
     Returns (hs [B,S,d] in pre's dtype, (cT, nT, mT, hT) [B,H,dh])."""
+    _forward_only("slstm_scan", pre, r_all, c0, n0, m0, h0)
     if pre.is_cuda and not _plain["on"]:
         return slstm_kernel(pre, r_all, c0, n0, m0, h0)
     return slstm_scan_ref(pre, r_all, c0, n0, m0, h0)
@@ -60,6 +79,7 @@ def slstm_scan(pre, r_all, c0, n0, m0, h0):
 def ssm_scan(u, dt, A, B, C, D, h0=None):
     """u, dt: [Bb,S,d]; A: [d,N]; B,C: [Bb,S,N]; D: [d]; h0: [Bb,d,N] or
     None. Returns (y [Bb,S,d] in u's dtype, h_last [Bb,d,N] float32)."""
+    _forward_only("ssm_scan", u, dt, A, B, C, D, h0)
     if u.is_cuda and not _plain["on"]:
         return ssm_kernel(u, dt, A, B, C, D, h0=h0)
     return ssm_scan_ref(u, dt, A, B, C, D, h0=h0)
@@ -67,6 +87,7 @@ def ssm_scan(u, dt, A, B, C, D, h0=None):
 
 def expert_gemm(x, w):
     """x: [E,M,K]; w: [E,K,N] -> [E,M,N] in x's dtype, summed in float32."""
+    _forward_only("expert_gemm", x, w)
     if x.is_cuda and not _plain["on"]:
         return expert_kernel(x, w)
     return expert_gemm_ref(x, w)

@@ -136,6 +136,21 @@ def lm_logits(params, x, cfg: ModelConfig):
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ w.to(x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:
-        # mask padded vocab entries so argmax/softmax never pick them
-        logits[..., cfg.vocab_size:] = NEG_INF
+        # mask padded vocab entries so argmax/softmax never pick them; out
+        # of place, so autograd sees the mask
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
     return logits
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in float32. logits [B,S,V], labels [B,S] int;
+    with ``mask`` [B,S], the mean over the positions it weights."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -1,4 +1,4 @@
-"""Top-level model API: init, forward, prefill, decode.
+"""Top-level model API: init, loss, forward, prefill, decode.
 
 ``build_model(cfg)`` returns a ``Model``; parameters are a nested dict of
 tensors in the reference's key layout (``embed/tok_embed``,
@@ -14,9 +14,12 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import dtype_of, resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
-from repro_torch.models.layers import embed_init, embed_tokens, lm_logits
+from repro_torch.models.layers import (
+    embed_init, embed_tokens, lm_logits, softmax_cross_entropy)
+
+FRONTEND_TOKENS = {"vision": 256, "audio": 64, "none": 0}
 
 
 @dataclass(frozen=True)
@@ -37,13 +40,11 @@ class Model:
                                        dtype_of(self.cfg),
                                        resolve_device(device))
 
-    @torch.no_grad()
-    def forward(self, params, tokens, frontend_embeds=None, caches=None,
-                cache_index=None, use_kernel: bool = False):
-        """Returns (logits [B,S,padded_vocab], caches). Caches (k/v and
-        recurrent states) are written in place. ``use_kernel`` sends
-        prefill attention, the sLSTM scan, the selective scan and the MoE
-        expert products through ``kernels.ops``."""
+    def _apply(self, params, tokens, frontend_embeds=None, caches=None,
+               cache_index=None, use_kernel: bool = False,
+               training: bool = False):
+        """(logits [B,S,padded_vocab], caches, aux) under the caller's grad
+        mode."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens, cfg, frontend_embeds)
         B, S = tokens.shape
@@ -56,11 +57,39 @@ class Model:
         else:
             positions = torch.arange(S, dtype=torch.int32,
                                      device=tokens.device)[None]
-        x, caches = transformer.stack_apply(
+        x, caches, aux = transformer.stack_apply(
             params["stack"], x, positions, cfg, caches=caches,
-            cache_index=cache_index, use_kernel=use_kernel)
-        return lm_logits(params["embed"], x, cfg), caches
+            cache_index=cache_index, use_kernel=use_kernel, training=training)
+        return lm_logits(params["embed"], x, cfg), caches, aux
 
+    @torch.no_grad()
+    def forward(self, params, tokens, frontend_embeds=None, caches=None,
+                cache_index=None, use_kernel: bool = False):
+        """Returns (logits [B,S,padded_vocab], caches). Caches (k/v and
+        recurrent states) are written in place. ``use_kernel`` sends
+        prefill attention, the sLSTM scan, the selective scan and the MoE
+        expert products through ``kernels.ops``."""
+        logits, caches, _ = self._apply(params, tokens, frontend_embeds,
+                                        caches, cache_index, use_kernel)
+        return logits, caches
+
+    def loss(self, params, batch):
+        """batch: {"tokens": [B,S], "labels": [B,S], optional
+        "frontend_embeds", optional "loss_mask"}. Returns (loss, {"ce",
+        "aux"}), differentiable: grad mode is on, there are no caches, the
+        groups are recomputed in the backward pass as ``cfg.remat`` asks,
+        and every op is a plain path (the kernels are forward-only)."""
+        with torch.enable_grad():
+            logits, _, aux = self._apply(
+                params, batch["tokens"], batch.get("frontend_embeds"),
+                training=True)
+            ce = softmax_cross_entropy(logits, batch["labels"],
+                                       batch.get("loss_mask"))
+            if not torch.is_tensor(aux):     # no MoE layer
+                aux = ce.new_zeros(())
+            return ce + aux, {"ce": ce, "aux": aux}
+
+    @torch.no_grad()
     def prefill(self, params, tokens, frontend_embeds=None, max_len=None,
                 use_kernel: bool = False):
         """Fill fresh caches for [0, S) (k/v up to ``max_len``, or the
@@ -72,6 +101,7 @@ class Model:
                                       use_kernel=use_kernel)
         return logits[:, -1], caches
 
+    @torch.no_grad()
     def decode_step(self, params, token, caches, cache_index):
         """token: [B,1]; cache_index: an int or a [B] tensor (position to
         write). Returns (logits [B,padded_vocab], caches). Decode takes the
@@ -80,6 +110,21 @@ class Model:
         logits, caches = self.forward(params, token, caches=caches,
                                       cache_index=cache_index)
         return logits[:, -1], caches
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """{name: (shape, dtype)} of a train step's batch at ``shape``."""
+        if shape.kind != "train":
+            raise ValueError(f"input_specs of a {shape.kind!r} step")
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        specs = {"tokens": ((B, S), torch.int32),
+                 "labels": ((B, S), torch.int32)}
+        nf = FRONTEND_TOKENS.get(cfg.frontend, 0)
+        if nf:
+            specs["frontend_embeds"] = ((B, nf, cfg.frontend_dim),
+                                        dtype_of(cfg))
+            specs["loss_mask"] = ((B, S), torch.float32)
+        return specs
 
 
 def build_model(cfg: ModelConfig) -> Model:

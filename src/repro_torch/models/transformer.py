@@ -5,7 +5,15 @@ leading ``n_groups`` axis on every leaf, so converted weights and caches
 compare one for one. Where the reference scans over groups, the port loops
 in Python. Every mixer kind is ported: attention, Mamba (``ssm``), mLSTM
 and sLSTM; attention and Mamba layers take an MoE block or a dense FFN.
-The MoE aux loss is a training quantity and is dropped here.
+The MoE aux loss is summed over the layers of a group, then over groups,
+as the reference sums it.
+
+On the training path (``training=True``, no caches) each group is
+recomputed in the backward pass as ``cfg.remat`` asks: ``"block"`` keeps
+the outputs of the weight matmuls (``aten.mm``/``addmm``, the counterpart
+of the reference's ``dots_with_no_batch_dims_saveable``) and recomputes
+the rest, ``"full"`` keeps only the group's input, ``"none"`` keeps
+everything. Serving ignores ``remat``.
 
 Caches are written in place: attention writes its new keys and values into
 the k/v tensors it is given, and the recurrent layers copy their new state
@@ -15,9 +23,12 @@ sLSTM, each with the leading ``n_groups`` axis).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -38,6 +49,26 @@ def _index(tree, g: int):
     """Group g of a stacked tree (views, so writes reach the stack)."""
     return {k: _index(v, g) if isinstance(v, dict) else v[g]
             for k, v in tree.items()}
+
+
+def _groups(tree, n: int) -> List[Dict[str, Any]]:
+    """The n groups of a stacked tree, as views. One ``unbind`` a leaf, so
+    the backward pass stacks a leaf's n gradients once (indexing each group
+    on its own would make n full-size gradients of every leaf)."""
+    out = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _groups(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for g in range(n):
+            out[g][k] = parts[g]
+    return out
+
+
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def stack_init(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
@@ -64,8 +95,11 @@ def stack_init(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
 def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
                 cache: Optional[Dict] = None, cache_index=None,
                 use_kernel: bool = False):
-    """Apply one block (its cache, if any, is written in place)."""
+    """Apply one block (its cache, if any, is written in place). Returns
+    (x, aux): aux is the MoE load-balancing loss, a float32 scalar tensor,
+    or the number 0.0 without MoE (no kernel on the serving paths)."""
     kind = cfg.layer_kind(layer_pos)
+    aux = 0.0
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
     if kind == "attn":
         out = attn.attn_apply(params["mixer"], h, positions, cfg, cache=cache,
@@ -86,29 +120,64 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
     x = x + out
     if "moe" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + moe_lib.moe_apply(params["moe"], h, cfg,
-                                  use_kernel=use_kernel)[0]
+        out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
+                                     use_kernel=use_kernel)
+        x = x + out
     elif "ffn" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
         x = x + ffn_apply(params["ffn"], h, cfg.act)
-    return x
+    return x, aux
+
+
+def _group_apply(group_params, x, positions, cfg: ModelConfig,
+                 group_caches: Optional[Dict], cache_index, use_kernel: bool,
+                 training: bool):
+    """One group: ``period`` consecutive blocks. Returns (x, aux summed
+    over the group's blocks); aux is summed only when ``training``, so
+    serving launches nothing for it."""
+    aux = 0.0
+    for p in range(cfg.resolved_scan_period):
+        name = _pos_name(p)
+        cache = group_caches[name] if group_caches is not None else None
+        x, a = block_apply(group_params[name], x, positions, cfg, p,
+                           cache=cache, cache_index=cache_index,
+                           use_kernel=use_kernel)
+        if training:
+            aux = aux + a
+    return x, aux
 
 
 def stack_apply(params, x, positions, cfg: ModelConfig,
                 caches: Optional[Dict] = None, cache_index=None,
-                use_kernel: bool = False):
+                use_kernel: bool = False, training: bool = False):
     """Run all groups in order. caches: {posNN: stacked cache}, written in
-    place. Returns (x, caches)."""
-    period = cfg.resolved_scan_period
-    for g in range(cfg.n_groups):
-        for p in range(period):
-            name = _pos_name(p)
-            cache = _index(caches[name], g) if caches is not None else None
-            x = block_apply(_index(params[name], g), x, positions, cfg, p,
-                            cache=cache, cache_index=cache_index,
-                            use_kernel=use_kernel)
+    place. ``training`` (no caches) recomputes each group in the backward
+    pass as ``cfg.remat`` asks. Returns (x, caches, aux), aux summed over
+    the groups when ``training`` (else, and without MoE, 0.0)."""
+    G = cfg.n_groups
+    names = [_pos_name(p) for p in range(cfg.resolved_scan_period)]
+    blocks = _groups({n: params[n] for n in names}, G)
+    apply = _group_apply
+    if training and caches is None and cfg.remat != "none":
+        if cfg.remat not in ("block", "full"):
+            raise ValueError(f"remat={cfg.remat!r}")
+        context = (functools.partial(create_selective_checkpoint_contexts,
+                                     _save_weight_matmuls)
+                   if cfg.remat == "block" else None)
+
+        def apply(*args):
+            kw = {"context_fn": context} if context is not None else {}
+            return checkpoint(_group_apply, *args, use_reentrant=False, **kw)
+    aux = 0.0
+    for g in range(G):
+        group_caches = ({n: _index(caches[n], g) for n in names}
+                        if caches is not None else None)
+        x, a = apply(blocks[g], x, positions, cfg, group_caches, cache_index,
+                     use_kernel, training)
+        if training:
+            aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches
+    return x, caches, aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,

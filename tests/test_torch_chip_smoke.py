@@ -1,6 +1,7 @@
 """The pure helpers of chip_smoke.py, on the CPU: the ptxas report parser
-its build check reads for spills, and the bounds it prints beside each
-kernel's time (the selective scan's with the exp unit)."""
+its build check reads for spills, the bounds it prints beside each
+kernel's time (the selective scan's with the exp unit), the model FLOPs of
+a train step, and the training phases at smoke size."""
 import importlib.util
 from pathlib import Path
 
@@ -59,3 +60,70 @@ def test_slstm_bound_is_bound_by_operations_at_xlstm_width():
     ms, by = chip_smoke.slstm_bound(1, 512, 4, 512, torch.bfloat16)
     assert by == "operations"
     assert ms == pytest.approx(2 * 512 * 4 * 2048 * 512 / 67e12 * 1e3)
+
+
+def test_train_flops_of_phi4_at_run_config_defaults():
+    """6 N T for the weight matmuls plus 12 L B S^2 Hq hd for the scores."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("phi4_mini_3_8b")
+    f = chip_smoke.train_flops(cfg, 8, 512, 3_836_414_976)
+    assert f["tokens"] == 4096
+    assert f["active_params"] == 3_836_414_976
+    assert f["weight_flops"] == 6 * 3_836_414_976 * 4096
+    assert f["attention_flops"] == 12 * 32 * 8 * 512 ** 2 * 24 * 128
+    assert f["flops"] == f["weight_flops"] + f["attention_flops"]
+
+
+def test_train_flops_count_the_active_experts():
+    """Granite-MoE 1B-A400M: 24 layers of 32 experts, top 8 of them active;
+    the 1.33 B parameters hold 429 M active ones."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("granite_moe_1b_a400m")
+    f = chip_smoke.train_flops(cfg, 8, 512, 1_334_887_424)
+    idle = 24 * 3 * 1024 * 512 * (32 - 8)
+    assert f["active_params"] == 1_334_887_424 - idle == 428_917_760
+    assert f["weight_flops"] == 6 * 428_917_760 * 4096
+
+
+def test_train_flops_count_attention_layers_only():
+    from repro_torch.configs import get_config
+
+    jamba = get_config("jamba_v01_52b")   # 1 attention layer in 8
+    xlstm = get_config("xlstm_1_3b")      # none
+    assert chip_smoke.train_flops(jamba, 1, 64, 10)["attention_flops"] == (
+        12 * 4 * 64 ** 2 * 32 * 128)
+    assert chip_smoke.train_flops(xlstm, 1, 64, 10)["attention_flops"] == 0
+
+
+def _smoke_cfg(arch):
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(arch)
+
+
+def test_train_phases_run_on_the_cpu(capsys):
+    """The train_check, train and checkpoint phases, driven on the CPU at
+    smoke size (on the card they run the published widths)."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig
+
+    cfg = dataclasses.replace(_smoke_cfg("phi4_mini_3_8b"), dtype="float32")
+    chip_smoke.phase_train_check(cfg, 0, device="cpu")
+    granite = _smoke_cfg("granite_moe_1b_a400m")
+    run = RunConfig(model=granite, seq_len=32, global_batch=2)
+    rec = chip_smoke.phase_train(granite, 0, 3, device="cpu", run=run)
+    assert [r["step"] for r in rec["steps"]] == [1, 2, 3]
+    assert all(r["aux"] > 0 for r in rec["steps"])
+    assert rec["changed_share_by_dtype"]["float32"] > 0
+    assert not any(rec["launches"].values())
+    ranges = rec["breakdown"]["ranges"]
+    assert set(ranges) == {"forward", "backward", "optimizer"}
+    assert all(r["host_ms"] > 0 for r in ranges.values())
+    chip_smoke.phase_checkpoint(_smoke_cfg("phi4_mini_3_8b"), 0,
+                                device="cpu")
+    out = capsys.readouterr().out
+    for phase in ("train_check", "train", "checkpoint"):
+        assert f'"phase": "{phase}"' in out

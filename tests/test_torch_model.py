@@ -72,6 +72,40 @@ def test_forward_other_dense_archs(arch):
     _close(lt, lj, "float32")
 
 
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "codeqwen15_7b",
+                                  "internvl2_2b", "musicgen_large"])
+def test_forward_other_dense_archs_bf16(arch):
+    """bf16 logits of the other dense families. Their logits reach |3-4|,
+    where a bf16 ulp is 0.016-0.031, and XLA and torch round at other
+    points (ROADMAP Queue 3: port against reference 0.029-0.039), so the
+    port is held within twice the reference's own bf16 distance from its
+    float32 logits on the same bf16-valued weights, as the xLSTM and MoE
+    rows are, against both."""
+    from repro.models import build_model
+
+    jm, jp, pm, pp = models(arch, "bfloat16")
+    cfg = jm.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    jp32 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), jp)
+    toks = _tokens(cfg, (2, 12), 5)
+    fe = None
+    if cfg.frontend != "none":
+        fe = np.random.default_rng(6).standard_normal(
+            (2, 4, cfg.frontend_dim)).astype(np.float32)
+    V = cfg.vocab_size
+    jfe = None if fe is None else jnp.asarray(fe)
+    lj = f32(jm.forward(jp, jnp.asarray(toks), jfe)[0])[..., :V]
+    l32 = f32(build_model(cfg32).forward(jp32, jnp.asarray(toks), jfe)[0]
+              )[..., :V]
+    lt = f32(pm.forward(pp, torch.from_numpy(toks),
+                        None if fe is None else torch.from_numpy(fe))[0]
+             )[..., :V]
+    ref_err = max(np.abs(lj - l32).max(), TOL["bfloat16"])
+    assert ref_err < 0.2, ref_err
+    assert np.abs(lt - lj).max() <= 2 * ref_err
+    assert np.abs(lt - l32).max() <= 2 * ref_err
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("kernel", [False, True])
@@ -149,6 +183,47 @@ def test_prefill_decode_matches_forward(arch, kernel):
     assert max(errs) < 2e-2, (arch, errs)
 
 
+def _consistency_errors(prefill, decode, full, toks, P):
+    """Largest |prefill/decode logits - forward logits| of each position."""
+    last, caches = prefill(toks[:, :P])
+    errs = [np.abs(f32(last) - full[:, P - 1]).max()]
+    for i in range(P, toks.shape[1]):
+        lg, caches = decode(toks[:, i:i + 1], caches, i)
+        errs.append(np.abs(f32(lg) - full[:, i]).max())
+    return errs
+
+
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "codeqwen15_7b",
+                                  "musicgen_large"])
+@pytest.mark.parametrize("kernel", [False, True])
+def test_prefill_decode_matches_forward_other_dense(arch, kernel):
+    """The other dense rows of the reference's
+    tests/test_decode_consistency.py: bf16, 2e-2 on the plain path. On the
+    kernel path (the kernel's plain version on the CPU, which rounds its
+    probabilities to bf16 as the kernel does) the reference itself misses
+    2e-2 with use_pallas=True at these logits of |3-4| (0.033, 0.043 and
+    0.021), so the port is held within twice the reference's own error."""
+    jm, jp, pm, pp = models(arch, "bfloat16")
+    B, S, P = 2, 16, 12
+    toks = _tokens(pm.cfg, (B, S), 1)
+    tt = torch.from_numpy(toks)
+    errs = _consistency_errors(
+        lambda t: pm.prefill(pp, torch.from_numpy(t), max_len=S,
+                             use_kernel=kernel),
+        lambda t, c, i: pm.decode_step(pp, torch.from_numpy(t), c, i),
+        f32(pm.forward(pp, tt)[0]), toks, P)
+    bound = 2e-2
+    if kernel:
+        ref_errs = _consistency_errors(
+            lambda t: jm.prefill(jp, jnp.asarray(t), max_len=S,
+                                 use_pallas=True),
+            lambda t, c, i: jm.decode_step(jp, jnp.asarray(t), c,
+                                           jnp.int32(i)),
+            f32(jm.forward(jp, jnp.asarray(toks))[0]), toks, P)
+        bound = 2 * max(max(ref_errs), bound)
+    assert max(errs) < bound, (arch, errs, bound)
+
+
 def test_random_init_is_seeded_and_in_reference_layout():
     jm, jp, pm, _ = models("phi4_mini_3_8b", "bfloat16")
     a, b = pm.init(5, device="cpu"), pm.init(5, device="cpu")
@@ -204,7 +279,7 @@ def test_moe_and_hybrid_blocks_bf16_match_reference(arch):
         name = f"pos{p:02d}"
         jpar = jax.tree_util.tree_map(lambda a: a[0], jp["stack"][name])
         y, _, _ = block_apply(jpar, x, pos_j, cfg, p)
-        yt = ttr.block_apply(ttr._index(pp["stack"][name], 0),
+        yt, _ = ttr.block_apply(ttr._index(pp["stack"][name], 0),
                              torch.from_numpy(f32(x)).to(torch.bfloat16),
                              pos_t, pm.cfg, p)
         ulp = 2.0 ** (np.floor(np.log2(np.abs(f32(y)).max())) - 7)
