@@ -70,7 +70,28 @@ Phases, each printing one JSON line (and failing the run on any error):
      (the kernels are forward-only; training takes the plain paths);
  14. checkpoint: a train state of the Phi-4-mini smoke config saved from
      the card by CheckpointManager and restored into a fresh state on the
-     card, every leaf bit-equal and every digest matching.
+     card, every leaf bit-equal and every digest matching;
+ 15. fault: Phi-4-mini at full width and 2 layers (bf16, B=8 S=512)
+     trained 8 steps through TrainSupervisor, a synchronous checkpoint
+     (~8.2 GB) every 4 steps, slice 2 of 4 failing at step 6: 1 failure,
+     1 restore, a re-mesh to 3 data shards, and a final state bit-equal to
+     8 uninterrupted steps (deterministic algorithms, this phase only);
+     free disk, checkpoint bytes, each save's host copy and write, the
+     restore, ms a step;
+ 16. compress: int8 and top-k (5%) compression with error feedback over
+     that model's bf16 gradient tree (816 M elements), on the card and on
+     the CPU, bit-equal, the card's ms beside the bytes bound; the
+     error-feedback property over 20 rounds on one 3072 x 8192 leaf;
+ 17. train_lm: the port's examples/train_lm.py (loss falls, 1 restore);
+ 18. dispatch: the port's dispatch benchmark (t_s, U against task time,
+     kernels a task launches), the near-zero-work task 300 times through
+     TorchDispatchExecutor, and a raising payload recorded as failed;
+ 19. serve_batched: the port's example at Gemma 2B's published widths in
+     float32, 1 lane against 8 lanes, identical outputs;
+ 20. serving_replay: the port's replay --quick (120 requests, lanes 4
+     and 16) at Phi-4-mini's published widths in bf16, its smoke
+     invariant, every prefill attention through K1's wgmma body.
+Phases 15-18 launch no kernel of the port, and fail if one does.
 Every serving phase also checks that each launch took its main-path body
 (``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3.
 Each phase runs under a deadline: a phase that hangs ends the run with an
@@ -1249,6 +1270,433 @@ def phase_checkpoint(cfg, seed: int, device="cuda"):
         raise AssertionError(f"checkpoint round trip: {rec}")
 
 
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import ops
+
+    for kernel in ops.KERNELS.values():
+        kernel.reset_counts()
+
+
+def _launches() -> tuple:
+    """({kernel: launches since the reset}, {kernel: {body: launches}})."""
+    from repro_torch.kernels import ops
+
+    return ops.launch_counts(), {name: dict(k.launches_by_body)
+                                 for name, k in ops.KERNELS.items()}
+
+
+def _check_no_launches(phase: str) -> dict:
+    counts, _ = _launches()
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: kernel launches {counts}; the path "
+                             "runs no kernel")
+    return counts
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape and bits (NaNs and signed zeros included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+@contextlib.contextmanager
+def _timed_checkpoint_io(into: dict):
+    """Sum the seconds checkpoint.py spends copying leaves to the host and
+    writing step directories, into ``into["host_copy_s"]`` and
+    ``into["write_s"]`` (the write includes the digests)."""
+    from repro_torch.checkpoint import checkpoint as mod
+
+    originals = {"host_copy_s": ("_to_host", mod._to_host),
+                 "write_s": ("_write", mod._write)}
+
+    def timed(key, fn):
+        def wrapper(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                into[key] = into.get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    for key, (attr, fn) in originals.items():
+        setattr(mod, attr, timed(key, fn))
+    try:
+        yield into
+    finally:
+        for attr, fn in originals.values():
+            setattr(mod, attr, fn)
+
+
+# fault: steps, checkpoint period, and the slice that fails at which step
+FAULT_STEPS, FAULT_EVERY, FAULT_AT, FAULT_SLICE = 8, 4, 6, 2
+
+
+def phase_fault(cfg, seed: int, device="cuda", batch: int = 8,
+                seq: int = 512):
+    """TrainSupervisor around build_train_step: FAULT_STEPS steps with a
+    checkpoint every FAULT_EVERY (synchronous writes, keep 2, into a
+    temporary directory under build/ that is removed after), slice
+    FAULT_SLICE of 4 failing at step FAULT_AT. The supervised run must
+    report 1 failure, 1 restore, remeshes [(FAULT_EVERY, 3)] and final
+    step FAULT_STEPS, and end bit-equal to FAULT_STEPS uninterrupted steps
+    from the same state. Both runs under torch.use_deterministic_algorithms
+    (this phase only; CUBLAS_WORKSPACE_CONFIG is set before CUDA starts).
+    Returns the supervised run's final state and a batch for compress."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
+                                                         TrainSupervisor)
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.tree import leaves, map_tree
+
+    t_phase = time.perf_counter()
+    run = RunConfig(model=cfg, seq_len=seq, global_batch=batch, seed=seed,
+                    learning_rate=1e-3, warmup_steps=2,
+                    total_steps=FAULT_STEPS)
+    source = SyntheticTokens(cfg.vocab_size, seq, batch, seed=seed)
+    _reset_launches()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    io = {}
+    try:
+        step_fn = build_train_step(cfg, run=run, device=device)
+        state = init_train_state(cfg, run, device)
+        ref = map_tree(lambda t: t.detach().clone(), state)
+        step_ms = []
+        for s in range(FAULT_STEPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            ref, _ = step_fn(ref, source.batch_at(s))
+            _sync(device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def train_fn(st, step):
+            return step_fn(st, source.batch_at(step))[0]
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            free = shutil.disk_usage(d).free
+            mgr = CheckpointManager(d, keep=2, async_write=False)
+            saves, restores = [], []
+            save, restore = mgr.save, mgr.restore
+
+            def timed_save(step, tree, extra=None):
+                part = {}
+                with _timed_checkpoint_io(part):
+                    t0 = time.perf_counter()
+                    save(step, tree, extra)
+                saves.append({"step": step,
+                              "s": time.perf_counter() - t0, **part})
+
+            def timed_restore(tree_like, step=None):
+                t0 = time.perf_counter()
+                out = restore(tree_like, step)
+                _sync(device)
+                restores.append({"step": out[1].get("step"),
+                                 "s": time.perf_counter() - t0})
+                return out
+
+            mgr.save, mgr.restore = timed_save, timed_restore
+            mon = HeartbeatMonitor(n_slices=4)
+            for i in range(4):
+                mon.beat(i)
+            sup = TrainSupervisor(mgr, mon, global_batch=batch,
+                                  checkpoint_every=FAULT_EVERY)
+            fails = {FAULT_AT: FAULT_SLICE}
+            state, report = sup.run(
+                state, train_fn, 0, FAULT_STEPS,
+                failure_injector=lambda s: fails.pop(s, None))
+            kept = sorted(p.name for p in Path(d).glob("step_*"))
+            disk_bytes = sum(f.stat().st_size for f in
+                             (Path(d) / kept[-1]).iterdir())
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    launches = _check_no_launches("fault")
+    pairs = list(zip(leaves(state), leaves(ref)))
+    mismatched = [i for i, (a, b) in enumerate(pairs) if not _bit_equal(a, b)]
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    rec = {"phase": "fault", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "dtype": cfg.dtype, "batch": batch,
+           "seq_len": seq, "steps": FAULT_STEPS,
+           "checkpoint_every": FAULT_EVERY, "fail_slice": FAULT_SLICE,
+           "fail_at": FAULT_AT, "deterministic": True,
+           "cublas_workspace_config": os.environ.get(
+               "CUBLAS_WORKSPACE_CONFIG"),
+           "free_disk_bytes_before": free,
+           "checkpoint_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves(state)),
+           "checkpoint_disk_bytes": disk_bytes, "kept": kept,
+           "saves": saves, "restores": restores,
+           "uninterrupted_step_ms": step_ms,
+           "report": dataclasses.asdict(report),
+           "leaves": len(pairs), "mismatched_leaves": mismatched,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    del ref
+    _empty_cache(device)
+    want = (1, 1, [(FAULT_EVERY, 3)], FAULT_STEPS)
+    got = (report.failures, report.restores, report.remeshes,
+           report.final_step)
+    if got != want or mismatched:
+        raise AssertionError(f"fault: report {got}, want {want}; "
+                             f"{len(mismatched)} leaves differ from the "
+                             "uninterrupted run")
+    return state, source.batch_at(FAULT_STEPS)
+
+
+def compress_bytes(grads) -> int:
+    """Bytes one compression call must move: each compressible leaf's
+    gradient and float32 error read once, its float32 output and new
+    error written once (passthrough leaves move nothing)."""
+    from repro_torch.distributed.compression import _is_compressible
+    from repro_torch.tree import leaves
+
+    return sum(g.numel() * (g.element_size() + 12)
+               for g in leaves(grads) if _is_compressible(g))
+
+
+def phase_compress(cfg, params, batch, seed: int, device="cuda",
+                   k_fraction: float = 0.05, rounds: int = 20,
+                   leaf_shape=(3072, 8192)):
+    """int8_compress and topk_compress (k_fraction) with error feedback
+    over the gradient tree of ``params`` (one loss and backward on
+    ``batch``): a second round (carrying the first round's error) on the
+    card and on the CPU from the same tensors, bit-equal, error state
+    too; the card's ms a call beside the bytes bound. Then the reference
+    test's error-feedback property over ``rounds`` rounds on one leaf of
+    ``leaf_shape`` (Phi-4-mini's w_up), and top-k's kept share on a leaf
+    of that shape with no ties."""
+    from repro_torch.distributed.compression import (init_error_state,
+                                                     int8_compress,
+                                                     topk_compress)
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, map_tree, unflatten
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    _reset_launches()
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+    loss, _ = build_model(cfg).loss(params, batch_to(batch, device))
+    grads = torch.autograd.grad(loss, ps)
+    for p in ps:
+        p.requires_grad_(False)
+    del loss
+    grads = unflatten(params, [g.detach() for g in grads])
+    host = map_tree(lambda g: g.to("cpu"), grads)
+    nbytes = compress_bytes(grads)
+    rec = {"phase": "compress", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "elements": sum(g.numel() for g in leaves(grads)),
+           "grad_dtypes": sorted({str(g.dtype).split(".")[1]
+                                  for g in leaves(grads)}),
+           "k_fraction": k_fraction, "bytes": nbytes,
+           "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+           "compressors": {}}
+    ok = True
+    for name, fn in (("int8", int8_compress),
+                     ("topk", lambda g, e: topk_compress(g, k_fraction, e))):
+        _, err1 = fn(grads, None)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out, err = fn(grads, err1)
+        _sync(device)
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        ms = (cuda_ms(lambda: fn(grads, err1), iters=5, warmup=1) if cuda
+              else None)
+        # the CPU's second round from the same gradients and carried error
+        cerr1 = map_tree(lambda e: None if e is None else e.to("cpu"), err1)
+        t0 = time.perf_counter()
+        cout, cerr = fn(host, cerr1)
+        cpu_s = time.perf_counter() - t0
+        diff = [i for i, (a, b) in enumerate(zip(
+            leaves(out) + leaves(err), leaves(cout) + leaves(cerr)))
+            if (a is None) != (b is None)
+            or (a is not None and not _bit_equal(a, b))]
+        kept = sum(int((o != 0).sum()) for o, e in zip(leaves(out),
+                                                       leaves(err))
+                   if e is not None)
+        rec["compressors"][name] = {
+            "ms": ms, "peak_extra_bytes": peak, "cpu_s": cpu_s,
+            "leaves_differing_from_cpu": diff,
+            "nonzero_share": kept / sum(g.numel() for g, e in zip(
+                leaves(grads), leaves(err)) if e is not None)}
+        ok = ok and not diff
+        del out, err, err1, cout, cerr, cerr1
+        _empty_cache(device)
+    # the reference's error-feedback property on one full-width leaf
+    gen = torch.Generator(device=device).manual_seed(seed)
+    err = init_error_state({"w_up": torch.zeros(leaf_shape, device=device)})
+    true_sum = torch.zeros(leaf_shape, device=device)
+    comp_sum = torch.zeros(leaf_shape, device=device)
+    for _ in range(rounds):
+        g = torch.randn(leaf_shape, generator=gen, device=device)
+        true_sum += g
+        dq, err = int8_compress({"w_up": g}, err)
+        comp_sum += dq["w_up"]
+    resid = float((true_sum - comp_sum).abs().max())
+    scale = float(true_sum.abs().max())
+    # top-k's kept share on a leaf with no ties: distinct magnitudes (the
+    # float32 bit patterns from 1.0 upward, permuted), random signs
+    n = true_sum.numel()
+    mag = (torch.randperm(n, generator=gen, device=device, dtype=torch.int32)
+           + 0x3F800000).view(torch.float32)
+    sign = torch.randint(0, 2, (n,), generator=gen, device=device) * 2 - 1
+    leaf = (mag * sign).reshape(leaf_shape)
+    kept, _ = topk_compress({"w_up": leaf}, k_fraction)
+    share = float((kept["w_up"] != 0).float().mean())
+    ties = n - int(torch.unique(leaf.abs()).numel())
+    rec.update({"feedback_leaf": list(leaf_shape), "rounds": rounds,
+                "feedback_resid": resid, "feedback_scale": scale,
+                "feedback_limit": 0.05 * scale + 0.1,
+                "topk_kept_share": share, "topk_leaf_ties": ties,
+                "launches": _check_no_launches("compress"),
+                "phase_s": time.perf_counter() - t_phase})
+    emit(rec)
+    if not ok:
+        raise AssertionError("compress: the card and the CPU differ")
+    if not resid < 0.05 * scale + 0.1:
+        raise AssertionError(f"compress: error feedback lost the sum "
+                             f"({resid} against {scale})")
+    if not share <= k_fraction + 0.01:
+        raise AssertionError(f"compress: top-k kept {share}")
+
+
+def phase_train_lm(device="cuda"):
+    """The port's examples/train_lm.py (200 steps of the phi4 smoke
+    config, slice 1 failing at step 120); it raises unless the loss fell
+    and one restore happened."""
+    from repro_torch.examples import train_lm
+
+    _reset_launches()
+    res = train_lm.main(["--device", str(device)])
+    report = res["report"]
+    emit({"phase": "train_lm", "steps": train_lm.STEPS,
+          "loss_first10": res["first"], "loss_last10": res["last"],
+          "seconds": res["seconds"], "report": dataclasses.asdict(report),
+          "launches": _check_no_launches("train_lm")})
+
+
+def phase_dispatch(device="cuda"):
+    """The port's dispatch benchmark: t_s, the utilisation rows with the
+    kernels a task launches, the fit over queued dispatches; the
+    near-zero-work task through TorchDispatchExecutor 300 times; and one
+    raising payload, which must land in ``errors`` with ok=False."""
+    from repro_torch.bench import dispatch_latency as dl
+    from repro_torch.core.executor import TorchDispatchExecutor
+    from repro_torch.core.job import Task
+
+    dev = torch.device(device)
+    _reset_launches()
+    fit = dl.fit_dispatch_latency(dev)
+    ex = dl.executor_latency(dev, 300)
+    t_s, rows = dl.run(dev, quiet=True)   # last: it ends in profiling
+    zero = dl.launches_per_task(*dl._work_fn(0, dev), dev)
+
+    def boom():
+        raise RuntimeError("payload fails")
+
+    executor, outcomes = TorchDispatchExecutor(), []
+    executor.run(Task(0, 0, payload=boom), outcomes.append)
+    raised = outcomes == [False] and isinstance(executor.errors.get((0, 0)),
+                                                RuntimeError)
+    emit({"phase": "dispatch", "t_s_us": t_s * 1e6,
+          "zero_work_kernel": "torch.neg over 128 x 128 float32",
+          "zero_work_launches": zero, "rows": rows,
+          "fit": {"t_s_us": fit.t_s * 1e6, "alpha_s": fit.alpha_s,
+                  "r2": fit.r2, "n": fit.n_values},
+          "executor": {**ex, "mean_us": ex["mean_s"] * 1e6},
+          "raising_payload_recorded": raised,
+          "launches": _check_no_launches("dispatch")})
+    if ex["ok"] != ex["tasks"] or ex["errors"] or not raised:
+        raise AssertionError(f"dispatch executor: {ex}, raised {raised}")
+    if dev.type == "cuda" and (zero != 1 or any(
+            r["launches_per_task"] != 2 * r["flops_scale"] for r in rows)):
+        raise AssertionError(f"dispatch: launches per task {zero}, "
+                             f"{[r['launches_per_task'] for r in rows]}")
+
+
+def phase_serve_batched(device="cuda", full: bool = True):
+    """The port's examples/serve_batched.py on Gemma 2B (published widths
+    with ``full``) in float32: 1 lane and 8 lanes must give identical
+    outputs. Every prefill attention goes through K1 on the card."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.examples import serve_batched
+
+    cfg = (get_config if full else get_smoke_config)("gemma_2b")
+    argv = ["--device", str(device), "--dtype", "float32"] + (
+        ["--full"] if full else [])
+    _reset_launches()
+    res = serve_batched.main(argv)
+    _sync(device)
+    counts, by_body = _launches()
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    cuda = torch.device(device).type == "cuda"
+    expected = 2 * serve_batched.N_REQ * attn if cuda else 0
+    keys = ("decode_steps", "decode_tokens", "tokens_per_dispatch",
+            "throughput_tok_s", "wall_s")
+    emit({"phase": "serve_batched", "arch": cfg.name, "dtype": "float32",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "serial": {k: res["serial"][k] for k in keys},
+          "batched": {k: res["batched"][k] for k in keys},
+          "dispatch_reduction": res["dispatch_reduction"],
+          "outputs_identical": True, "launches": counts,
+          "launches_expected": {"flash_attention": expected},
+          "launches_by_body": by_body})
+    if counts["flash_attention"] != expected or any(
+            n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"serve_batched launches {counts}, want "
+                             f"{expected} of flash_attention")
+    return counts, by_body
+
+
+def phase_serving_replay(device="cuda", full: bool = True):
+    """The port's serving replay --quick (120 requests, lanes 4 and 16;
+    Phi-4-mini at its published widths with ``full``, bf16); its smoke
+    invariant must hold, and on the card every prefill attention of the
+    warm-up and the replay goes through K1's wgmma body."""
+    from repro_torch.bench import serving_replay
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_config if full else get_smoke_config)("phi4_mini_3_8b")
+    argv = ["--quick", "--device", str(device)] + (["--full"] if full
+                                                     else [])
+    _reset_launches()
+    rows = serving_replay.main(argv)
+    _sync(device)
+    counts, by_body = _launches()
+    cuda = torch.device(device).type == "cuda"
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    expected = (len(rows) * (120 + 1) * attn) if cuda else 0
+    emit({"phase": "serving_replay", "arch": cfg.name, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "rows": rows,
+          "smoke_invariant": serving_replay.smoke_invariant(rows),
+          "launches": counts,
+          "launches_expected": {"flash_attention": expected},
+          "launches_by_body": by_body})
+    want_body = {SERVE_BODY["flash_attention"]: expected} if expected else {}
+    if counts["flash_attention"] != expected or (
+            by_body["flash_attention"] != want_body):
+        raise AssertionError(f"serving_replay launches {by_body}, want "
+                             f"{want_body}")
+    return counts, by_body
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1259,6 +1707,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    # deterministic cuBLAS for the fault phase: read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import (expert_gemm, flash_attention, ops,
                                      slstm_scan, ssm_scan)
@@ -1338,6 +1788,26 @@ def main() -> int:
     with deadline(120, "checkpoint"):
         phase_checkpoint(get_smoke_config("phi4_mini_3_8b"), args.seed)
 
+    # fault-tolerant training and compression: Phi-4-mini at full width,
+    # 2 of its 32 layers, bf16
+    fault_cfg = dataclasses.replace(get_config("phi4_mini_3_8b"), n_layers=2)
+    with deadline(300, "fault"):
+        fault_state, fault_batch = phase_fault(fault_cfg, args.seed)
+    with deadline(240, "compress"):
+        phase_compress(fault_cfg, fault_state["params"], fault_batch,
+                       args.seed)
+    del fault_state
+    torch.cuda.empty_cache()
+    with deadline(180, "train_lm"):
+        phase_train_lm()
+    # the scheduler's real-dispatch path
+    with deadline(120, "dispatch"):
+        phase_dispatch()
+    with deadline(240, "serve_batched"):
+        batched, batched_body = phase_serve_batched()
+    with deadline(300, "serving_replay"):
+        replay, replay_body = phase_serving_replay()
+
     emit({"phase": "timing", "cuda_ms_retakes": CUDA_MS_RETAKES[0]})
     rec = flash_timed[("phi4_S512", torch.bfloat16)]
     flash_keys = ("B", "S", "Hq", "Hkv", "hd", "max_abs_err", "kernel_ms",
@@ -1350,9 +1820,14 @@ def main() -> int:
         "launches": phi4["flash_attention"],
         "launches_granite": granite["flash_attention"],
         "launches_jamba": jamba["flash_attention"],
+        "launches_serve_batched": batched["flash_attention"],
+        "launches_serving_replay": replay["flash_attention"],
         "launches_by_body": {"phi4": phi4_body["flash_attention"],
                              "granite": granite_body["flash_attention"],
-                             "jamba": jamba_body["flash_attention"]},
+                             "jamba": jamba_body["flash_attention"],
+                             "serve_batched": batched_body["flash_attention"],
+                             "serving_replay": replay_body[
+                                 "flash_attention"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -16,6 +16,10 @@ numpy's ``.npy`` has no bfloat16: a bfloat16 leaf is stored as its uint16
 bit pattern with dtype ``bfloat16`` in the manifest, as the reference
 stores it. The port goes through ``int16`` views of the tensor, so it
 needs no ``ml_dtypes``.
+
+Leaves are written, and read back and verified, by a pool of threads:
+hashing and file I/O release the interpreter lock, and the digests cost
+more than the writes.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import os
 import shutil
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -38,8 +43,14 @@ def _leaf_id(i: int) -> str:
     return f"leaf_{i:05d}.npy"
 
 
+# threads that write or read leaves at once (each holds one leaf in flight)
+IO_THREADS = min(8, os.cpu_count() or 1)
+
+
 def _digest(arr: np.ndarray) -> str:
-    return hashlib.blake2b(arr.tobytes(), digest_size=16).hexdigest()
+    """blake2b-16 of the array's raw bytes in C order."""
+    return hashlib.blake2b(np.ascontiguousarray(arr).data,
+                           digest_size=16).hexdigest()
 
 
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -60,13 +71,17 @@ def _write(directory: str, step: int, host: List[Tuple[np.ndarray, str]],
            extra: Optional[Dict]) -> str:
     ckpt = Path(directory) / f"step_{step:08d}"
     tmp = Path(tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_"))
-    manifest = {"step": step, "treedef": "repro_torch.tree",
-                "n_leaves": len(host), "leaves": [], "extra": extra or {}}
-    for i, (arr, dtype_str) in enumerate(host):
+
+    def leaf(i: int) -> dict:
+        arr, dtype_str = host[i]
         np.save(tmp / _leaf_id(i), arr, allow_pickle=False)
-        manifest["leaves"].append({
-            "file": _leaf_id(i), "shape": list(arr.shape),
-            "dtype": dtype_str, "digest": _digest(arr)})
+        return {"file": _leaf_id(i), "shape": list(arr.shape),
+                "dtype": dtype_str, "digest": _digest(arr)}
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        leaves = list(pool.map(leaf, range(len(host))))
+    manifest = {"step": step, "treedef": "repro_torch.tree",
+                "n_leaves": len(host), "leaves": leaves, "extra": extra or {}}
     (tmp / "MANIFEST.json").write_text(json.dumps(manifest, indent=1))
     (tmp / "COMMIT").write_text("ok")
     if ckpt.exists():
@@ -108,7 +123,8 @@ def load_checkpoint(directory: str, tree_like: Any,
     if len(targets) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"model expects {len(targets)}")
-    for meta, target in zip(manifest["leaves"], targets):
+
+    def leaf(meta: dict, target: torch.Tensor) -> None:
         arr = np.load(ckpt / meta["file"], allow_pickle=False)
         if verify and _digest(arr) != meta["digest"]:
             raise IOError(f"integrity check failed for {meta['file']}")
@@ -119,6 +135,11 @@ def load_checkpoint(directory: str, tree_like: Any,
                 f"expected {tuple(target.shape)} {target.dtype}")
         with torch.no_grad():
             target.copy_(t)
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        for done in [pool.submit(leaf, meta, target) for meta, target
+                     in zip(manifest["leaves"], targets)]:
+            done.result()
     return tree_like, manifest["extra"]
 
 
@@ -130,15 +151,19 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 class CheckpointManager:
-    """Async checkpointing with retention. ``save`` copies the tree to the
-    host before it returns (a consistent snapshot; the next step may then
-    change the state in place) and writes the files in a background
-    thread; ``wait`` joins it and raises its error, if any."""
+    """Checkpointing with retention. ``save`` copies the tree to the host
+    before it returns (a consistent snapshot; the next step may then change
+    the state in place). With ``async_write`` it writes the files in a
+    background thread, and ``wait`` joins it and raises its error, if any;
+    without, ``save`` writes them itself and raises a write error at once.
+    The newest ``keep`` committed steps are kept."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 async_write: bool = True):
         self.directory = directory
         Path(directory).mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.async_write = async_write
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -147,13 +172,20 @@ class CheckpointManager:
         host = [_to_host(x) for x in tree_lib.leaves(tree)]
 
         def write():
+            _write(self.directory, step, host, extra)
+            self._gc()
+
+        if not self.async_write:
+            write()
+            return
+
+        def background():
             try:
-                _write(self.directory, step, host, extra)
-                self._gc()
+                write()
             except Exception as e:  # noqa: BLE001 - raised by wait()
                 self._error = e
 
-        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread = threading.Thread(target=background, daemon=True)
         self._thread.start()
 
     def wait(self) -> None:

@@ -1,13 +1,14 @@
-"""Jobs and tasks: the part of the scheduler's data model that serving uses.
+"""Jobs and tasks: the part of the scheduler's data model the port uses.
 
-A trimmed copy of the reference scheduler's ``Job``/``Task``: a request is a
-job array of one task, and the task is what holds a decode lane.
+A trimmed copy of the reference scheduler's ``Job``/``Task``. In serving a
+request is a job array of one task, and the task is what holds a decode
+lane; an executor (``core/executor.py``) runs a task's ``payload``.
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 _job_ids = itertools.count(1)
 
@@ -23,6 +24,8 @@ class ResourceRequest:
 class Task:
     job_id: int
     index: int
+    duration: float = 0.0               # simulated runtime (seconds)
+    payload: Optional[Callable] = None  # real work, run by an executor
     request: ResourceRequest = field(default_factory=ResourceRequest)
     node_id: Optional[int] = None
 

@@ -1,8 +1,10 @@
 """The pure helpers of chip_smoke.py, on the CPU: the ptxas report parser
 its build check reads for spills, the bounds it prints beside each
 kernel's time (the selective scan's with the exp unit), the model FLOPs of
-a train step, and the training phases at smoke size."""
+a train step, and the training, fault-tolerance, compression, dispatch
+and example phases at smoke size."""
 import importlib.util
+import json
 from pathlib import Path
 
 import pytest
@@ -127,3 +129,67 @@ def test_train_phases_run_on_the_cpu(capsys):
     out = capsys.readouterr().out
     for phase in ("train_check", "train", "checkpoint"):
         assert f'"phase": "{phase}"' in out
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the phases' many small ops: no slower, and
+    the other test workers need the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_fault_and_compress_phases_run_on_the_cpu(capsys):
+    """The fault, compress and train_lm phases, driven on the CPU at smoke
+    size (on the card: Phi-4-mini at full width and 2 layers)."""
+    cfg = _smoke_cfg("phi4_mini_3_8b")
+    state, batch = chip_smoke.phase_fault(cfg, 0, device="cpu", batch=2,
+                                          seq=32)
+    chip_smoke.phase_compress(cfg, state["params"], batch, 0, device="cpu",
+                              leaf_shape=(64, 128))
+    chip_smoke.phase_train_lm(device="cpu")
+    out = capsys.readouterr().out
+    recs = {r["phase"]: r for r in map(json.loads, (
+        line for line in out.splitlines() if line.startswith('{"phase"')))}
+    fault = recs["fault"]
+    assert fault["report"]["remeshes"] == [[4, 3]]   # (step, dp) in JSON
+    assert fault["mismatched_leaves"] == []
+    assert [s["step"] for s in fault["saves"]] == [4, 8, 8]
+    assert all(s["write_s"] > 0 and s["host_copy_s"] > 0
+               for s in fault["saves"])
+    assert fault["kept"] == ["step_00000004", "step_00000008"]
+    assert [r["step"] for r in fault["restores"]] == [4]
+    comp = recs["compress"]
+    assert comp["compressors"]["int8"]["leaves_differing_from_cpu"] == []
+    assert comp["compressors"]["topk"]["nonzero_share"] <= 0.06
+    assert comp["bytes"] > 0 and comp["topk_leaf_ties"] == 0
+    assert comp["topk_kept_share"] == int(64 * 128 * 0.05) / (64 * 128)
+    assert recs["train_lm"]["report"]["restores"] == 1
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_dispatch_and_serving_phases_run_on_the_cpu(capsys):
+    """The dispatch, serve_batched and serving_replay phases on the CPU
+    (smoke configs; no kernel launches there)."""
+    chip_smoke.phase_dispatch(device="cpu")
+    counts, _ = chip_smoke.phase_serve_batched(device="cpu", full=False)
+    assert not any(counts.values())
+    counts, _ = chip_smoke.phase_serving_replay(device="cpu", full=False)
+    assert not any(counts.values())
+    out = capsys.readouterr().out
+    recs = {r["phase"]: r for r in map(json.loads, (
+        line for line in out.splitlines() if line.startswith('{"phase"')))}
+    assert recs["dispatch"]["raising_payload_recorded"]
+    assert recs["dispatch"]["executor"]["ok"] == 300
+    assert recs["serve_batched"]["dispatch_reduction"] == 8.0
+    assert recs["serving_replay"]["smoke_invariant"]
+    assert [r["lanes"] for r in recs["serving_replay"]["rows"]] == [4, 16]
+
+
+def test_compress_bytes_count_compressible_leaves_only():
+    g = {"w": torch.zeros(64, 128, dtype=torch.bfloat16),
+         "b": torch.zeros(128), "m": torch.zeros(32, 64)}
+    assert chip_smoke.compress_bytes(g) == 64 * 128 * (2 + 12)
