@@ -90,7 +90,20 @@ Phases, each printing one JSON line (and failing the run on any error):
      float32, 1 lane against 8 lanes, identical outputs;
  20. serving_replay: the port's replay --quick (120 requests, lanes 4
      and 16) at Phi-4-mini's published widths in bf16, its smoke
-     invariant, every prefill attention through K1's wgmma body.
+     invariant, every prefill attention through K1's wgmma body;
+ 21. mesh: the step builders on a one-device DeviceMesh over NCCL
+     (make_host_mesh) with full-width Phi-4-mini: a 32-layer bf16 prefill
+     through K1 (32 wgmma launches), k-step decode (k = 4) at 2 layers in
+     float32 with the meshless builder's greedy tokens and at full depth
+     in bf16 beside it, two bf16 train steps at 2 layers bit-equal to the
+     meshless ones (deterministic algorithms), host ms of a decode step
+     and a train step on and off the mesh, and the host cost of the no-op
+     constrain calls of a meshless decode step;
+ 22. dryrun: python -m repro_torch.launch.dryrun in two subprocesses (no
+     card, a fake process group of 256) for Phi-4-mini, Granite-MoE,
+     Jamba and xLSTM at full size × the four assigned shapes on the
+     (16, 16) mesh: no failed cell, each cell's dominant roofline term and
+     argument bytes a device against the card's 80 GB.
 Phases 15-18 launch no kernel of the port, and fail if one does.
 Every serving phase also checks that each launch took its main-path body
 (``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3.
@@ -1697,6 +1710,326 @@ def phase_serving_replay(device="cuda", full: bool = True):
     return counts, by_body
 
 
+# mesh: the step builders on a one-device DeviceMesh
+MESH_PROMPT, MESH_DECODE_K, MESH_LANES, MESH_MAX_LEN = 64, 4, 8, 1024
+MESH_DISPATCHES = 3
+
+
+def _constrain_counter():
+    """(counts, undo): every model module's ``constrain`` wrapped to count
+    its calls in ``counts["calls"]``."""
+    from repro_torch.models import attention, layers, moe, ssm, xlstm
+
+    counts = {"calls": 0}
+    mods = (attention, layers, moe, ssm, xlstm)
+    orig = [m.constrain for m in mods]
+
+    def counted(x, *names):
+        counts["calls"] += 1
+        return orig[0](x, *names)
+
+    for m in mods:
+        m.constrain = counted
+
+    def undo():
+        for m, f in zip(mods, orig):
+            m.constrain = f
+    return counts, undo
+
+
+def _greedy(step, params, token, caches, index, dispatches, k):
+    """Tokens of ``dispatches`` k-step decode calls, fed back."""
+    out = []
+    for i in range(dispatches):
+        logits, caches = step(params, token, caches, index + i * k)
+        logits = logits.to_local() if hasattr(logits, "to_local") else logits
+        token = logits.argmax(dim=-1, keepdim=True)
+        out.append(token[:, 0].tolist())
+    return out, logits
+
+
+def _host_ms_on(dev, fn, iters: int) -> float:
+    """``_host_ms`` on any device: host wall ms of fn() with a sync."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        _sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_mesh(cfg, seed: int, device="cuda", full_layers=None):
+    """The step builders on ``make_host_mesh()`` (one device, NCCL on the
+    card, gloo on the CPU) beside the meshless ones, with ``cfg`` at its
+    full width:
+
+    - prefill of ``full_layers`` layers (all of them by default) in bf16
+      with ``use_kernel=True``: K1 launches one a layer, in its wgmma
+      body on the card; logits equal to the meshless kernel prefill's;
+    - k-step decode (k = MESH_DECODE_K) at 2 layers in float32: greedy
+      tokens equal to the meshless builder's; at full depth in bf16: the
+      largest logit difference from the meshless builder;
+    - two bf16 train steps at 2 layers, on and off the mesh, bit-equal
+      under deterministic algorithms;
+    - host ms of a decode step and a train step on and off the mesh, and
+      the host cost of the no-op ``constrain`` calls of a meshless decode
+      step (calls in a step × the time of one, timed in a loop)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.distributed.sharding import constrain, param_shardings
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import (build_decode_step,
+                                          build_prefill_step,
+                                          build_train_step, init_train_state,
+                                          rules_for)
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, map_tree
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    full = dataclasses.replace(cfg, n_layers=full_layers or cfg.n_layers)
+    two32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    two16 = dataclasses.replace(cfg, n_layers=2)
+    rng = np.random.default_rng(seed)
+    rec = {"phase": "mesh", "arch": cfg.name, "d_model": cfg.d_model,
+           "n_layers": full.n_layers, "device": str(dev)}
+    mesh_lib.init_group("nccl" if cuda else "gloo", 1)
+    try:
+        mesh = mesh_lib.make_host_mesh(dev.type)
+        rec["mesh"] = dict(mesh_lib.axis_sizes(mesh))
+        rec["backend"] = torch.distributed.get_backend()
+
+        # prefill through K1 on the mesh, full depth, bf16
+        model = build_model(full)
+        params = model.init(seed, device=dev)
+        # laid out once, as a mesh run keeps them
+        mparams = param_shardings(params, mesh, rules_for(mesh, full))
+        prompt = rng.integers(0, cfg.vocab_size, (1, 512))
+        plain_pre = build_prefill_step(full, use_kernel=True, device=dev)
+        mesh_pre = build_prefill_step(full, use_kernel=True, device=dev,
+                                      mesh=mesh)
+        want, _ = plain_pre(params, {"tokens": prompt})
+        _reset_launches()
+        got, _ = mesh_pre(mparams, {"tokens": prompt})
+        _sync(dev)
+        counts, by_body = _launches()
+        attn = sum(full.layer_kind(i) == "attn" for i in range(full.n_layers))
+        expected = attn if cuda else 0
+        rec["prefill"] = {
+            "S": 512, "launches": counts, "launches_by_body": by_body,
+            "launches_expected": {"flash_attention": expected},
+            "max_abs_logit_diff": float((got.to_local().float()
+                                         - want.float()).abs().max())}
+        body_ok = (by_body["flash_attention"] == (
+            {SERVE_BODY["flash_attention"]: expected} if expected else {}))
+        if counts["flash_attention"] != expected or not body_ok or any(
+                n for name, n in counts.items() if name != "flash_attention"):
+            raise AssertionError(f"mesh prefill launches {by_body}, want "
+                                 f"{expected} wgmma")
+
+        # k-step decode, full depth bf16: logits beside the meshless path
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (MESH_LANES, MESH_PROMPT)),
+                               device=dev)
+        _, caches = model.prefill(params, toks, max_len=MESH_MAX_LEN)
+        mcaches = map_tree(lambda t: t.clone(), caches)
+        plain_dec = build_decode_step(full, steps_per_dispatch=MESH_DECODE_K)
+        mesh_dec = build_decode_step(full, steps_per_dispatch=MESH_DECODE_K,
+                                     mesh=mesh)
+        last = toks[:, -1:]
+        ptoks, plog = _greedy(plain_dec, params, last, caches, MESH_PROMPT,
+                              1, MESH_DECODE_K)
+        mtoks, mlog = _greedy(mesh_dec, mparams, last, mcaches, MESH_PROMPT,
+                              1, MESH_DECODE_K)
+        rec["decode_full"] = {
+            "dtype": full.dtype, "k": MESH_DECODE_K, "lanes": MESH_LANES,
+            "max_abs_logit_diff": float((mlog.float() - plog.float())
+                                        .abs().max()),
+            "tokens_equal": ptoks == mtoks}
+
+        # host ms of a decode step (one token, 8 lanes) on and off the mesh
+        one_plain = build_decode_step(full)
+        one_mesh = build_decode_step(full, mesh=mesh)
+        for name, fn, p, c in (("plain", one_plain, params, caches),
+                               ("mesh", one_mesh, mparams, mcaches)):
+            rec[f"decode_step_host_ms_{name}"] = _host_ms_on(
+                dev, lambda: fn(p, last, c, MESH_PROMPT + MESH_DECODE_K),
+                5 if cuda else 2)
+        # the no-op constrain calls of a meshless decode step
+        counter, undo = _constrain_counter()
+        try:
+            one_plain(params, last, caches, MESH_PROMPT + MESH_DECODE_K)
+        finally:
+            undo()
+        x = torch.zeros(1, device=dev)
+        n = 200_000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            constrain(x, "batch", "seq", "embed")
+        per_call_us = (time.perf_counter() - t0) / n * 1e6
+        rec["constrain"] = {
+            "calls_per_decode_step": counter["calls"],
+            "noop_call_us": per_call_us,
+            "ms_per_decode_step": counter["calls"] * per_call_us / 1e3,
+            "share_of_decode_step": counter["calls"] * per_call_us / 1e3
+            / rec["decode_step_host_ms_plain"]}
+        del caches, mcaches, params, mparams, model
+        _empty_cache(dev)
+
+        # 2 layers float32: the mesh's greedy tokens are the meshless ones
+        m32 = build_model(two32)
+        p32 = m32.init(seed, device=dev)
+        toks32 = toks[:3]
+        _, c32 = m32.prefill(p32, toks32, max_len=MESH_MAX_LEN)
+        mc32 = map_tree(lambda t: t.clone(), c32)
+        want_t, _ = _greedy(build_decode_step(
+            two32, steps_per_dispatch=MESH_DECODE_K), p32, toks32[:, -1:],
+            c32, MESH_PROMPT, MESH_DISPATCHES, MESH_DECODE_K)
+        got_t, _ = _greedy(build_decode_step(
+            two32, steps_per_dispatch=MESH_DECODE_K, mesh=mesh), p32,
+            toks32[:, -1:], mc32, MESH_PROMPT, MESH_DISPATCHES,
+            MESH_DECODE_K)
+        rec["decode_float32"] = {"n_layers": 2, "lanes": 3,
+                                 "dispatches": MESH_DISPATCHES,
+                                 "tokens": got_t, "tokens_equal":
+                                 got_t == want_t}
+        del p32, c32, mc32, m32
+        _empty_cache(dev)
+
+        # two bf16 train steps at 2 layers, deterministic: bit-equal
+        batch, seq = (8, 512) if cuda else (2, 32)
+        run = RunConfig(model=two16, seq_len=seq, global_batch=batch,
+                        seed=seed, learning_rate=1e-3, warmup_steps=2,
+                        total_steps=10)
+        source = SyntheticTokens(cfg.vocab_size, seq, batch, seed=seed)
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            plain = init_train_state(two16, run, dev)
+            meshed = map_tree(lambda t: t.detach().clone(), plain)
+            steps = {"plain": build_train_step(two16, run=run, device=dev),
+                     "mesh": build_train_step(two16, run=run, device=dev,
+                                              mesh=mesh)}
+            states = {"plain": plain, "mesh": meshed}
+            ms = {"plain": [], "mesh": []}
+            losses = {"plain": [], "mesh": []}
+            for i in range(2):
+                for name in ("plain", "mesh"):
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    states[name], met = steps[name](states[name],
+                                                    source.batch_at(i))
+                    losses[name].append(float(met["loss"]))
+                    _sync(dev)
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        pairs = list(zip(leaves(states["plain"]), leaves(states["mesh"])))
+        bad = [i for i, (a, b) in enumerate(pairs) if not _bit_equal(
+            a, b.to_local() if hasattr(b, "to_local") else b)]
+        rec["train"] = {"n_layers": 2, "dtype": two16.dtype, "B": batch,
+                        "S": seq, "steps": 2, "losses": losses,
+                        "step_host_ms": ms, "leaves": len(pairs),
+                        "mismatched_leaves": bad}
+        del states, plain, meshed, pairs
+        _empty_cache(dev)
+    finally:
+        mesh_lib.destroy_group()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    if rec["train"]["mismatched_leaves"]:
+        raise AssertionError(f"mesh train steps differ from the meshless "
+                             f"ones in {len(bad)} leaves")
+    if not rec["decode_float32"]["tokens_equal"]:
+        raise AssertionError("mesh float32 decode tokens differ")
+    if rec["prefill"]["max_abs_logit_diff"] != 0.0:
+        raise AssertionError(f"mesh prefill logits differ from the meshless "
+                             f"ones by {rec['prefill']['max_abs_logit_diff']}")
+    return counts, by_body
+
+
+DRYRUN_ARCHS = ("phi4_mini_3_8b", "granite_moe_1b_a400m", "jamba_v01_52b",
+                "xlstm_1_3b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+def phase_dryrun(timeout: float, smoke: bool = False, mesh: str = "single",
+                 archs=DRYRUN_ARCHS, shapes=DRYRUN_SHAPES):
+    """``python -m repro_torch.launch.dryrun`` in two subprocesses at once
+    (their fake process groups never meet this process's), each for half
+    of DRYRUN_ARCHS, at every assigned shape on the (16, 16) mesh, full
+    size unless ``smoke``; no card in the subprocesses. Fails on a failed
+    cell or a missing one; prints each cell's dominant term and argument
+    bytes a device against the card's 80 GB."""
+    import shutil
+
+    out = ROOT / "build" / ("dryrun_smoke" if smoke else "dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for i, part in enumerate(p for p in (archs[0::2], archs[1::2]) if p):
+            logs.append(open(out / f"log{i}.txt", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 ",".join(part), "--shape", ",".join(shapes), "--mesh",
+                 mesh, "--out", str(out)] + (["--smoke"] if smoke else []),
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
+                cwd=ROOT))
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    stderr = "".join((out / f"log{i}.txt").read_text()
+                     for i in range(len(logs)))
+    returncode = max(p.returncode for p in procs)
+    wall = time.perf_counter() - t0
+    cells = []
+    for arch in archs:
+        for shape in shapes:
+            path = out / f"{arch}__{shape}__{mesh}.json"
+            if not path.exists():
+                raise AssertionError(f"dryrun wrote no record for {arch} "
+                                     f"{shape}: {stderr[-2000:]}")
+            r = json.loads(path.read_text())
+            cell = {"arch": arch, "shape": shape, "status": r["status"]}
+            if r["status"] == "ok":
+                cell.update({
+                    "dominant": r["dominant"], "roofline": r["roofline"],
+                    "argument_bytes": r["memory"]["argument_bytes"],
+                    "argument_share_of_80GB":
+                        r["memory"]["argument_share_of_hbm"],
+                    "useful_flops_ratio": r["useful_flops_ratio"],
+                    "collectives": r["op_detail"]["collectives"],
+                    "run_s": r["run_s"], "build_s": r["build_s"]})
+            else:
+                cell["reason"] = r.get("reason", r.get("error"))
+            cells.append(cell)
+            print(f"  dryrun {arch:22s} {shape:12s} {r['status']:7s} "
+                  f"dom={cell.get('dominant', '-')} args/device="
+                  f"{cell.get('argument_bytes', 0) / 1e9:.2f} GB of 80",
+                  flush=True)
+    rec = {"phase": "dryrun", "mesh": mesh, "smoke": smoke,
+           "torch": torch.__version__, "returncode": returncode,
+           "wall_s": wall, "cells": cells}
+    emit(rec)
+    failed = [c for c in cells if c["status"] == "failed"]
+    if failed or returncode != 0:
+        raise AssertionError(f"dryrun: {len(failed)} failed cells, rc "
+                             f"{returncode}: {failed[:2]}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1807,6 +2140,12 @@ def main() -> int:
         batched, batched_body = phase_serve_batched()
     with deadline(300, "serving_replay"):
         replay, replay_body = phase_serving_replay()
+    # the mesh layer: a one-device DeviceMesh over NCCL, then the dry run
+    with deadline(300, "mesh"):
+        mesh_counts, mesh_body = phase_mesh(get_config("phi4_mini_3_8b"),
+                                            args.seed)
+    with deadline(420, "dryrun"):
+        phase_dryrun(timeout=400)
 
     emit({"phase": "timing", "cuda_ms_retakes": CUDA_MS_RETAKES[0]})
     rec = flash_timed[("phi4_S512", torch.bfloat16)]
@@ -1822,12 +2161,14 @@ def main() -> int:
         "launches_jamba": jamba["flash_attention"],
         "launches_serve_batched": batched["flash_attention"],
         "launches_serving_replay": replay["flash_attention"],
+        "launches_mesh_prefill": mesh_counts["flash_attention"],
         "launches_by_body": {"phi4": phi4_body["flash_attention"],
                              "granite": granite_body["flash_attention"],
                              "jamba": jamba_body["flash_attention"],
                              "serve_batched": batched_body["flash_attention"],
                              "serving_replay": replay_body[
-                                 "flash_attention"]},
+                                 "flash_attention"],
+                             "mesh_prefill": mesh_body["flash_attention"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

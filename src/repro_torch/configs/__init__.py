@@ -1,5 +1,7 @@
 from repro_torch.configs.base import (
+    ARCH_IDS,
     ASSIGNED_SHAPES,
+    SHAPES_BY_NAME,
     ModelConfig,
     MoEConfig,
     RunConfig,
@@ -12,7 +14,9 @@ from repro_torch.configs.base import (
 )
 
 __all__ = [
+    "ARCH_IDS",
     "ASSIGNED_SHAPES",
+    "SHAPES_BY_NAME",
     "ModelConfig",
     "MoEConfig",
     "RunConfig",

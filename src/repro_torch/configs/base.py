@@ -4,7 +4,9 @@ A copy of the reference package's ``ModelConfig`` (field for field, so a
 reference config converts with ``ModelConfig(**dataclasses.asdict(cfg))``)
 with its derived properties and analytic parameter count, and of its
 run-time configs: ``ShapeConfig`` (one input-shape cell), the assigned
-shapes and ``RunConfig`` (the trainer's batch, optimizer and schedule). The mesh layer is not part of the port yet.
+shapes and ``RunConfig`` (the trainer's batch, optimizer and schedule),
+and the registry (``ARCH_IDS``, ``SHAPES_BY_NAME``) the mesh layer's dry
+run sweeps (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -209,6 +211,22 @@ ASSIGNED_SHAPES: Tuple[ShapeConfig, ...] = (
     ShapeConfig("prefill_32k", "prefill", 32768, 32),
     ShapeConfig("decode_32k", "decode", 32768, 128),
     ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in ASSIGNED_SHAPES}
+
+# the reference registry's order
+ARCH_IDS = (
+    "jamba_v01_52b",
+    "arctic_480b",
+    "granite_moe_1b_a400m",
+    "phi4_mini_3_8b",
+    "codeqwen15_7b",
+    "gemma_2b",
+    "chatglm3_6b",
+    "xlstm_1_3b",
+    "internvl2_2b",
+    "musicgen_large",
 )
 
 

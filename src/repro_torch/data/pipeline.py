@@ -5,7 +5,9 @@ per (seed, step): skipping to any step is O(1), which makes a restart from
 a checkpoint exact. It is a copy of the reference's (numpy only), and
 gives the same batches bit for bit. ``TokenPipeline`` makes batches in a
 background thread, pins them in host memory, and moves each to the device
-with a non-blocking copy.
+with a non-blocking copy; with a mesh, each batch becomes a DTensor split
+on dimension 0 over the data axes where they divide it (replicated
+otherwise), as the reference shards it.
 """
 from __future__ import annotations
 
@@ -66,8 +68,9 @@ class TokenPipeline:
     """
 
     def __init__(self, source: SyntheticTokens, device="cuda",
-                 start_step: int = 0):
+                 start_step: int = 0, mesh=None):
         self.source = source
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.step = start_step
         self._q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
@@ -101,8 +104,22 @@ class TokenPipeline:
         if isinstance(batch, Exception):
             raise batch
         self.step = step + 1
-        return step, {k: v.to(self.device, non_blocking=True)
-                      for k, v in batch.items()}
+        batch = {k: v.to(self.device, non_blocking=True)
+                 for k, v in batch.items()}
+        return step, self._shard(batch) if self.mesh is not None else batch
+
+    def _shard(self, batch):
+        """Each array split on dim 0 over the data axes ("pod", "data")
+        when their product divides it, else replicated."""
+        from repro_torch.distributed.sharding import distribute
+        from repro_torch.launch.mesh import axis_sizes
+
+        sizes = axis_sizes(self.mesh)
+        dp = tuple(a for a in ("pod", "data") if a in sizes)
+        ways = int(np.prod([sizes[a] for a in dp])) if dp else 1
+        return {k: distribute(v, self.mesh, (dp,) if dp and v.shape[0]
+                              % ways == 0 else ())
+                for k, v in batch.items()}
 
     def __iter__(self):
         return self

@@ -9,6 +9,11 @@ Shows:
 
   PYTHONPATH=src python -m repro_torch.examples.train_lm               # card
   PYTHONPATH=src python -m repro_torch.examples.train_lm --device cpu
+  PYTHONPATH=src python -m repro_torch.examples.train_lm --mesh host
+
+``--mesh host`` runs the step on this process's one-device mesh, as the
+reference's example does (``make_host_mesh``); the supervisor keeps and
+checkpoints the state as plain tensors between steps.
 
 Four slices; slice 1 fails at step 120, and the run resumes from the
 checkpoint of step 100. Checkpoints go to a temporary directory, removed
@@ -28,7 +33,10 @@ from repro_torch.configs import RunConfig, get_smoke_config
 from repro_torch.data import SyntheticTokens
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
                                                      TrainSupervisor)
-from repro_torch.launch.steps import build_train_step, init_train_state
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import (_plain, build_train_step,
+                                      init_train_state)
+from repro_torch.tree import map_tree
 
 STEPS = 200
 BATCH, SEQ = 8, 64
@@ -38,20 +46,31 @@ FAILURES = {120: 1}   # slice 1 dies at step 120
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="none", choices=["none", "host"])
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    mesh = mesh_lib.make_host_mesh(dev.type) if args.mesh == "host" else None
+    try:
+        return _run(dev, mesh)
+    finally:
+        if mesh is not None:
+            mesh_lib.destroy_group()
+
+
+def _run(dev, mesh) -> dict:
 
     cfg = get_smoke_config("phi4_mini_3_8b")
     # the reference's schedule: cosine_schedule(1e-3, 20, STEPS)
     run = RunConfig(model=cfg, seq_len=SEQ, global_batch=BATCH,
                     learning_rate=1e-3, warmup_steps=20, total_steps=STEPS)
-    step_fn = build_train_step(cfg, run=run, device=dev)
+    step_fn = build_train_step(cfg, run=run, device=dev, mesh=mesh)
     source = SyntheticTokens(cfg.vocab_size, SEQ, BATCH)
     state = init_train_state(cfg, run, dev)
     losses = []
 
     def train_fn(state, step):
         state, metrics = step_fn(state, source.batch_at(step))
+        state = map_tree(_plain, state)
         losses.append(float(metrics["loss"]))
         if (step + 1) % 25 == 0:
             print(f"  step {step + 1:4d}  loss {losses[-1]:.4f}", flush=True)

@@ -5,6 +5,15 @@ a CPU tensor goes to the kernel's plain PyTorch version. Nothing falls back
 from the kernel to the plain version. ``plain_versions`` is a switch for
 checks only: inside it, CUDA tensors take the plain versions too.
 
+On a mesh (DTensor inputs), a kernel runs on each input's local shard
+when that is the whole computation: on a mesh of one device, or with
+every input replicated; its results are wrapped back as replicated. On
+a larger mesh with a sharded input the entry points raise: the
+reference does not partition its Pallas calls either, and its dry run
+runs ``use_pallas=False``. A DTensor never reaches a
+kernel's ``data_ptr()``; meta tensors (``is_cuda`` False) take the plain
+versions.
+
 Forward-only by design, as in the reference: the kernels have no backward,
 and a kernel bound through ctypes returns outputs with no ``grad_fn``, so
 the parameters upstream of it would get no gradient and no error. Each
@@ -56,10 +65,42 @@ def _forward_only(name: str, *tensors) -> None:
             "takes the plain paths (use_kernel=False)")
 
 
+def _on_shards(name: str, fn, *tensors):
+    """``fn`` over the local shards of DTensor inputs, its results wrapped
+    back as replicated (each shard is then its whole tensor); None if no
+    input is a DTensor. Raises where the shards are not the whole
+    computation."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    dts = [t for t in tensors if isinstance(t, DTensor)]
+    if not dts:
+        return None
+    mesh = dts[0].device_mesh
+    sharded = any(not p.is_replicate() for t in dts for p in t.placements)
+    if mesh.size() > 1 and sharded:
+        raise NotImplementedError(
+            f"ops.{name} on a mesh of {mesh.size()} devices with a sharded "
+            "input: the kernel is not partitioned (the reference's Pallas "
+            "calls are not either); run the plain path (use_kernel=False)")
+    out = fn(*(t.to_local() if isinstance(t, DTensor) else t
+               for t in tensors))
+    pl = [Replicate()] * mesh.ndim     # each shard is its whole tensor
+
+    def wrap(x):
+        if isinstance(x, tuple):
+            return tuple(wrap(y) for y in x)
+        return DTensor.from_local(x, mesh, pl, run_check=False)
+    return wrap(out)
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype."""
     _forward_only("flash_attention", q, k, v)
+    out = _on_shards("flash_attention", lambda *t: flash_attention(
+        *t, causal=causal, window=window, softcap=softcap), q, k, v)
+    if out is not None:
+        return out
     if q.is_cuda and not _plain["on"]:
         return flash_kernel(q, k, v, causal=causal, window=window,
                             softcap=softcap)
@@ -71,6 +112,9 @@ def slstm_scan(pre, r_all, c0, n0, m0, h0):
     """pre: [B,S,4,d]; r_all: [4,H,dh,dh]; c0/n0/m0/h0: [B,H,dh] float32.
     Returns (hs [B,S,d] in pre's dtype, (cT, nT, mT, hT) [B,H,dh])."""
     _forward_only("slstm_scan", pre, r_all, c0, n0, m0, h0)
+    out = _on_shards("slstm_scan", slstm_scan, pre, r_all, c0, n0, m0, h0)
+    if out is not None:
+        return out
     if pre.is_cuda and not _plain["on"]:
         return slstm_kernel(pre, r_all, c0, n0, m0, h0)
     return slstm_scan_ref(pre, r_all, c0, n0, m0, h0)
@@ -80,6 +124,10 @@ def ssm_scan(u, dt, A, B, C, D, h0=None):
     """u, dt: [Bb,S,d]; A: [d,N]; B,C: [Bb,S,N]; D: [d]; h0: [Bb,d,N] or
     None. Returns (y [Bb,S,d] in u's dtype, h_last [Bb,d,N] float32)."""
     _forward_only("ssm_scan", u, dt, A, B, C, D, h0)
+    out = _on_shards("ssm_scan", lambda *t: ssm_scan(*t[:6], h0=t[6]),
+                     u, dt, A, B, C, D, h0)
+    if out is not None:
+        return out
     if u.is_cuda and not _plain["on"]:
         return ssm_kernel(u, dt, A, B, C, D, h0=h0)
     return ssm_scan_ref(u, dt, A, B, C, D, h0=h0)
@@ -88,6 +136,9 @@ def ssm_scan(u, dt, A, B, C, D, h0=None):
 def expert_gemm(x, w):
     """x: [E,M,K]; w: [E,K,N] -> [E,M,N] in x's dtype, summed in float32."""
     _forward_only("expert_gemm", x, w)
+    out = _on_shards("expert_gemm", expert_gemm, x, w)
+    if out is not None:
+        return out
     if x.is_cuda and not _plain["on"]:
         return expert_kernel(x, w)
     return expert_gemm_ref(x, w)

@@ -16,6 +16,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models import loops
 from repro_torch.models.layers import NEG_INF, _normal, apply_rope
 
 CHUNK_Q = 1024
@@ -52,7 +54,51 @@ def _qkv(params, x, positions, cfg: ModelConfig):
     q = apply_rope(_proj(x, params["wq"]), positions, cfg)
     k = apply_rope(_proj(x, params["wk"]), positions, cfg)
     v = _proj(x, params["wv"])
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    # K/V use "kv_seq" (default: replicated over seq)
+    k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
     return q, k, v
+
+
+def _kv_for(q, k, v):
+    """k and v as the attention of ``q`` takes them. On a mesh where the
+    query heads are split over more devices than divide the kv heads
+    (phi4's 32 padded heads over 16, 8 kv heads), a head group cannot be
+    a DTensor dimension (XLA tiles the group dims; DTensor cannot), so the
+    kv heads are repeated to one per query head: the same products, the
+    kv bytes G times. Otherwise (and for plain tensors) k and v."""
+    if not hasattr(q, "placements"):
+        return k, v
+    mesh, Hq, Hkv = q.device_mesh, q.shape[2], k.shape[2]
+    ways = 1
+    for i, p in enumerate(q.placements):
+        if p.is_shard(q.dim() - 2):
+            ways *= mesh.size(i)
+    if ways == 1 or Hkv % ways == 0:
+        return k, v
+    return _RepeatKV.apply(k, Hq // Hkv), _RepeatKV.apply(v, Hq // Hkv)
+
+
+class _RepeatKV(torch.autograd.Function):
+    """kv heads repeated G times on dim 2. The gradient sums each group
+    back; a gradient split over the repeated heads is gathered first (the
+    group view of a split head dim is what DTensor cannot take)."""
+
+    @staticmethod
+    def forward(ctx, t, G):
+        ctx.G = G
+        return t.repeat_interleave(G, dim=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+
+        if any(p.is_shard(2) for p in g.placements):
+            g = g.redistribute(g.device_mesh, [
+                Replicate() if p.is_shard(2) else p for p in g.placements])
+        B, T, H, hd = g.shape
+        return g.reshape(B, T, H // ctx.G, ctx.G, hd).sum(dim=3), None
 
 
 def _softcap(logits, cap: float):
@@ -66,6 +112,7 @@ def full_attention(q, k, v, cfg: ModelConfig):
 
     q: [B,S,Hq,hd], k/v: [B,T,Hkv,hd]; returns [B,S,Hq,hd]. fp32 softmax.
     """
+    k, v = _kv_for(q, k, v)
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, hd)
@@ -88,6 +135,7 @@ def chunked_attention(q, k, v, cfg: ModelConfig, chunk_q: int = CHUNK_Q,
     never materialises an [S, T] matrix. Computes every block pair and
     masks, as the reference's scan does.
     """
+    k, v = _kv_for(q, k, v)
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -97,13 +145,14 @@ def chunked_attention(q, k, v, cfg: ModelConfig, chunk_q: int = CHUNK_Q,
                          f"{chunk_q}, {chunk_k}")
     scale = hd ** -0.5
     outs = []
-    for q0 in range(0, S, chunk_q):
+    n_q = S // chunk_q
+    for q0 in (i * chunk_q for i in loops.steps(n_q, q)):
         qb = q[:, q0:q0 + chunk_q].reshape(B, chunk_q, Hkv, G, hd)
         qpos = torch.arange(q0, q0 + chunk_q, device=q.device)
         m = torch.full((B, Hkv, G, chunk_q), float("-inf"), device=q.device)
         num = torch.zeros((B, Hkv, G, chunk_q, hd), device=q.device)
         den = torch.zeros((B, Hkv, G, chunk_q), device=q.device)
-        for k0 in range(0, T, chunk_k):
+        for k0 in (i * chunk_k for i in loops.steps(T // chunk_k, k)):
             kb, vb = k[:, k0:k0 + chunk_k], v[:, k0:k0 + chunk_k]
             kpos = torch.arange(k0, k0 + chunk_k, device=q.device)
             logits = torch.einsum("bqkgh,bskh->bkgqs", qb, kb).float()
@@ -123,7 +172,7 @@ def chunked_attention(q, k, v, cfg: ModelConfig, chunk_q: int = CHUNK_Q,
         # [B,Hkv,G,chunk_q,hd] -> [B,chunk_q,Hq,hd]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, chunk_q, Hq, hd)
                     .to(q.dtype))
-    return torch.cat(outs, dim=1)
+    return torch.cat(loops.fill(outs, n_q), dim=1)
 
 
 def attn_apply(params, x, positions, cfg: ModelConfig,
@@ -150,7 +199,8 @@ def attn_apply(params, x, positions, cfg: ModelConfig,
             cv[:, i:i + S] = v.to(cv.dtype)
         if S == 1:
             out = decode_attention(q, ck, cv, cache_index, cfg)
-            return _out_proj(out, params["wo"])
+            return constrain(_out_proj(out, params["wo"]),
+                             "batch", "seq", "embed")
         # prefill attends over the cache, so K and V pass the cache dtype
         k, v = ck[:, :S], cv[:, :S]
     if use_kernel and S > 1:
@@ -162,7 +212,7 @@ def attn_apply(params, x, positions, cfg: ModelConfig,
         out = chunked_attention(q, k, v, cfg)
     else:
         out = full_attention(q, k, v, cfg)
-    return _out_proj(out, params["wo"])
+    return constrain(_out_proj(out, params["wo"]), "batch", "seq", "embed")
 
 
 def decode_attention(q, ck, cv, cache_index, cfg: ModelConfig):
@@ -171,6 +221,7 @@ def decode_attention(q, ck, cv, cache_index, cfg: ModelConfig):
     q: [B,1,Hq,hd], ck/cv: [B,L,Hkv,hd]; positions after ``cache_index``
     (an int or a [B] tensor) are masked.
     """
+    ck, cv = _kv_for(q, ck, cv)
     B, _, Hq, hd = q.shape
     L, Hkv = ck.shape[1], ck.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)

@@ -1,8 +1,9 @@
 """Shared primitive layers: norms, RoPE, FFN, embeddings.
 
 Functions take the parameter dict of their layer (the reference's key
-layout) and tensors in the reference's layouts. The reference's sharding
-constraints have no counterpart here: the port runs on one device.
+layout) and tensors in the reference's layouts. ``constrain`` marks the
+reference's sharding points: a no-op outside a mesh step's rules
+(``distributed/sharding.py``).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 
 NEG_INF = -2.3819763e38  # large negative, safe in bfloat16
 
@@ -91,7 +93,7 @@ def ffn_init(gen, d_model: int, d_ff: int, act: str, dtype, lead=()):
 
 
 def ffn_apply(params, x, act: str):
-    up = x @ params["w_up"]
+    up = constrain(x @ params["w_up"], "batch", "seq", "ffn")
     if act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * up
     elif act == "geglu":
@@ -100,7 +102,7 @@ def ffn_apply(params, x, act: str):
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(act)
-    return h @ params["w_down"]
+    return constrain(h @ params["w_down"], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +127,22 @@ def embed_tokens(params, tokens, cfg: ModelConfig,
     Modality stub: the first F positions are replaced by projected
     frontend embeddings.
     """
-    x = params["tok_embed"][tokens]
+    if hasattr(tokens, "placements") and tokens.device_mesh.size() > 1:
+        # the same rows, from the table gathered whole: DTensor's index_put
+        # (indexing's backward) mislays a split index in some versions,
+        # and a vocab-split lookup's masked partial sums cannot take every
+        # gradient layout that meets them (a tied head's, a 3-D mesh's)
+        from torch.distributed.tensor import Replicate
+
+        w = params["tok_embed"]
+        x = F.embedding(tokens, w.redistribute(
+            w.device_mesh, [Replicate()] * w.device_mesh.ndim))
+    else:
+        x = params["tok_embed"][tokens]
     if frontend_embeds is not None:
         fe = frontend_embeds.to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 def lm_logits(params, x, cfg: ModelConfig):
@@ -140,7 +153,7 @@ def lm_logits(params, x, cfg: ModelConfig):
         # of place, so autograd sees the mask
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, NEG_INF)
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def softmax_cross_entropy(logits, labels, mask=None):
@@ -148,8 +161,12 @@ def softmax_cross_entropy(logits, labels, mask=None):
     with ``mask`` [B,S], the mean over the positions it weights."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    # the gather on 2-D views selects the same elements; DTensor's
+    # vocab-sharded gather takes only a 2-D index, and its masked partial
+    # sum must be reduced in the gather's own shape (before any reshape)
+    gold = torch.gather(logits.reshape(-1, logits.shape[-1]), -1,
+                        labels.reshape(-1, 1).long())
+    nll = (logz.reshape(-1, 1) - gold).reshape(labels.shape)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

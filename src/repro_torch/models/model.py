@@ -22,15 +22,27 @@ from repro_torch.models.layers import (
 FRONTEND_TOKENS = {"vision": 256, "audio": 64, "none": 0}
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is meta: ``init(device="meta")``
+    makes every leaf on the meta device (shapes and dtypes, no memory), as
+    the dry run needs at full size."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random parameters from ``seed`` on ``device`` (not the
-        reference's random numbers: convert its weights to compare)."""
+        reference's random numbers: convert its weights to compare); on
+        ``"meta"``, their shapes and dtypes only."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = (_MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev)).manual_seed(seed)
         dt = dtype_of(self.cfg)
         return {"embed": embed_init(gen, self.cfg, dt),
                 "stack": transformer.stack_init(gen, self.cfg, dt)}

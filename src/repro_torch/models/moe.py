@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, split_evenly
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal, ffn_apply, ffn_init
 
@@ -123,7 +124,8 @@ def moe_apply(params, x, cfg: ModelConfig,
     if tokens % g_size:
         raise ValueError(f"{tokens} tokens do not split into MoE groups of "
                          f"{g_size}")
-    xg = x.reshape(tokens // g_size, g_size, d)
+    xg = split_evenly(x, 0, tokens // g_size).reshape(
+        tokens // g_size, g_size, d)
     probs, gate_vals, gate_idx, pos, keep, capacity = route(
         params["router"], xg, cfg)
 
@@ -139,15 +141,22 @@ def moe_apply(params, x, cfg: ModelConfig,
     combine = torch.einsum("ngk,ngke,ngkc->ngec", gate_vals.to(x.dtype),
                            F.one_hot(gate_idx, E).to(x.dtype), cap_oh)
     dispatch = (combine > 0).to(x.dtype)
+    combine = constrain(combine, "batch", None, "experts", None)
+    dispatch = constrain(dispatch, "batch", None, "experts", None)
 
     # expert computation: every expert over its whole capacity
     ex_in = torch.einsum("ngd,ngec->necd", xg, dispatch)
+    ex_in = constrain(ex_in, "batch", "experts", None, "embed")
     w = params["experts"]
     product = _expert_gemm if use_kernel else _expert_einsum
     up = product(ex_in, w["w_up"])
     gate = product(ex_in, w["w_gate"]) if "w_gate" in w else None
-    ex_out = product(_activate(gate, up, cfg.act), w["w_down"])
+    h = constrain(_activate(gate, up, cfg.act),
+                  "batch", "experts", None, "expert_ffn")
+    ex_out = constrain(product(h, w["w_down"]),
+                       "batch", "experts", None, "embed")
     out = torch.einsum("necd,ngec->ngd", ex_out, combine).reshape(B, S, d)
+    out = constrain(out, "batch", "seq", "embed")
     if m.dense_residual:
         out = out + ffn_apply(params["dense"], x, cfg.act)
     return out, aux

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models import loops
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal
 
@@ -106,14 +108,17 @@ def selective_scan(u, dt, A, B, C, D, h0=None, chunk: int = SSM_CHUNK):
     u32, dt32, B32, C32 = (t.to(_F32) for t in (u, dt, B, C))
     h = (u32.new_zeros((Bb, din, N)) if h0 is None else h0.to(_F32))
     ys = []
-    for c0 in range(0, S, chunk):
+    # the chunks are alike when the chunk divides S (the dry run rolls them)
+    n = -(-S // chunk)
+    for c0 in (i * chunk for i in (loops.steps(n, u) if S % chunk == 0
+                                   else range(n))):
         c1 = min(c0 + chunk, S)
         dtc = dt32[:, c0:c1]
         dA = dtc[..., None] * A                                # [B,L,din,N]
         dBx = (dtc * u32[:, c0:c1])[..., None] * B32[:, c0:c1, None, :]
         h_all, h = _chunk_scan(dA, dBx, h)
         ys.append(torch.einsum("blhn,bln->blh", h_all, C32[:, c0:c1]))
-    y = torch.cat(ys, dim=1) + u32 * D
+    y = torch.cat(loops.fill(ys, n), dim=1) + u32 * D
     return y.to(u.dtype), h
 
 
@@ -124,7 +129,8 @@ def ssm_apply(params, x, cfg: ModelConfig, state: Optional[Dict] = None,
     Returns (y, new state or None).
     """
     S = x.shape[1]
-    xi, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    xz = constrain(x @ params["in_proj"], "batch", "seq", "ssm_inner")
+    xi, z = xz.chunk(2, dim=-1)
     conv_state = state["conv"] if state is not None else None
     xi, new_conv = causal_conv1d(xi, params["conv_w"], params["conv_b"],
                                  conv_state)
@@ -142,7 +148,7 @@ def ssm_apply(params, x, cfg: ModelConfig, state: Optional[Dict] = None,
     else:
         y, h_last = selective_scan(xi, dt, A, Bm, Cm, params["ssm_d"], h0=h0)
     y = y * F.silu(z)
-    out = y @ params["out_proj"]
+    out = constrain(y @ params["out_proj"], "batch", "seq", "embed")
     new_state = None
     if return_state or state is not None:
         new_state = {"conv": new_conv.to(x.dtype), "h": h_last}

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import loops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm
@@ -169,7 +170,7 @@ def stack_apply(params, x, positions, cfg: ModelConfig,
             kw = {"context_fn": context} if context is not None else {}
             return checkpoint(_group_apply, *args, use_reentrant=False, **kw)
     aux = 0.0
-    for g in range(G):
+    for g in loops.steps(G, x):
         group_caches = ({n: _index(caches[n], g) for n in names}
                         if caches is not None else None)
         x, a = apply(blocks[g], x, positions, cfg, group_caches, cache_index,

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models import loops
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal
 from repro_torch.models.ssm import causal_conv1d
@@ -30,6 +32,34 @@ from repro_torch.models.ssm import causal_conv1d
 MLSTM_CHUNK = 128
 CONV_K = 4
 _F32 = torch.float32
+
+
+class _LogSigmoid(torch.autograd.Function):
+    """log σ(x) written out as ATen's kernels compute it: min(x, 0) −
+    log1p(z) forward, g·(1 − z/(1 + z)) for x < 0 and g·z/(1 + z)
+    otherwise backward, z = exp(−|x|). DTensor has no sharding strategy for
+    ``aten.log_sigmoid_backward``, and decomposes the forward only on its
+    first call; these ops all have strategies (and count the same on every
+    call)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_max(x, 0.0) - torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        z = torch.exp(-x.abs())
+        q = z / (1 + z)
+        return torch.where(x < 0, 1 - q, q) * g
+
+
+def _logsigmoid(x):
+    """log σ(x); on a mesh (DTensor) through ``_LogSigmoid``."""
+    if hasattr(x, "placements"):
+        return _LogSigmoid.apply(x)
+    return F.logsigmoid(x)
 
 
 def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int]:
@@ -78,17 +108,21 @@ def _mlstm_parallel(q, k, v, ig, fg, chunk: int = MLSTM_CHUNK):
     holds what is left of S.
     """
     B, H, S, dh = q.shape
-    Fc = torch.cumsum(F.logsigmoid(fg), dim=-1)        # [B,H,S]
+    Fc = torch.cumsum(_logsigmoid(fg), dim=-1)        # [B,H,S]
     tpos = torch.arange(S, device=q.device)
     m = torch.full((B, H, S), -torch.inf, dtype=_F32, device=q.device)
     num = torch.zeros((B, H, S, dh), dtype=_F32, device=q.device)
     den = torch.zeros((B, H, S), dtype=_F32, device=q.device)
-    for c0 in range(0, S, chunk):
+    # the chunks are alike when the chunk divides S (the dry run rolls them)
+    n = -(-S // chunk)
+    for c0 in (i * chunk for i in (loops.steps(n, q) if S % chunk == 0
+                                   else range(n))):
         c1 = min(c0 + chunk, S)
         a = torch.einsum("bhtd,bhsd->bhts", q, k[:, :, c0:c1]).float()
         a = a * dh ** -0.5
-        G = Fc[..., :, None] - Fc[..., None, c0:c1] + ig[..., None, c0:c1]
-        visible = tpos[c0:c1][None, :] <= tpos[:, None]      # [S, chunk]
+        G = (Fc[..., :, None] - Fc[..., None, c0:c1]
+             + ig[..., None, c0:c1])
+        visible = tpos[c0:c1][None, :] <= tpos[:, None]  # [S, chunk]
         G = torch.where(visible, G, -torch.inf)
         m_new = torch.maximum(m, G.amax(dim=-1))
         scale = torch.exp(m - m_new)
@@ -106,7 +140,7 @@ def _mlstm_recurrent_step(q, k, v, ig, fg, state):
     C, n, m = state["C"], state["n"], state["m"]
     dh = q.shape[-1]
     qs, ks, vs = q[:, :, 0], k[:, :, 0], v[:, :, 0]
-    logf = F.logsigmoid(fg[..., 0])
+    logf = _logsigmoid(fg[..., 0])
     i = ig[..., 0]
     m_new = torch.maximum(logf + m, i)
     fs = torch.exp(logf + m - m_new)[..., None]
@@ -125,7 +159,7 @@ def _mlstm_state_from_prefill(q, k, v, ig, fg):
     """Final (C, n, m) state after a prefill, for decode to continue from.
 
     Like the reference, it starts from zero whatever state came in."""
-    logf = F.logsigmoid(fg)
+    logf = _logsigmoid(fg)
     Fc = torch.cumsum(logf, dim=-1)
     g = (Fc[..., -1:] - Fc + ig).float()   # weight of source s in the state
     m = g.amax(dim=-1)
@@ -143,7 +177,7 @@ def mlstm_apply(params, x, cfg: ModelConfig, state: Optional[Dict] = None,
     B, S, _ = x.shape
     H = cfg.n_heads
     din, dh = mlstm_dims(cfg)
-    u = x @ params["up_proj"]
+    u = constrain(x @ params["up_proj"], "batch", "seq", "ssm_inner")
     z = x @ params["gate_proj"]
     conv_state = state["conv"] if state is not None else None
     c, new_conv = causal_conv1d(u, params["conv_w"], params["conv_b"],
@@ -171,7 +205,7 @@ def mlstm_apply(params, x, cfg: ModelConfig, state: Optional[Dict] = None,
     h = h.transpose(1, 2).reshape(B, S, din)
     h = h + params["skip_scale"].to(h.dtype) * c
     h = h * F.silu(z)
-    return h @ params["down_proj"], new_state
+    return constrain(h @ params["down_proj"], "batch", "seq", "embed"), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +248,7 @@ def _slstm_cell(r_all, pre, carry, H):
     f_t = pre[:, 1] + rec[1]
     z_t = torch.tanh(pre[:, 2] + rec[2])
     o_t = torch.sigmoid(pre[:, 3] + rec[3])
-    logf = F.logsigmoid(f_t)
+    logf = _logsigmoid(f_t)
     m_new = torch.maximum(logf + m, i_t)
     c = c * torch.exp(logf + m - m_new) + torch.exp(i_t - m_new) * z_t
     n = n * torch.exp(logf + m - m_new) + torch.exp(i_t - m_new)
@@ -265,14 +299,15 @@ def slstm_apply(params, x, cfg: ModelConfig, state: Optional[Dict] = None,
     else:
         w, b = _gate_weights(params)
         hs = []
-        for t in range(S):
+        for t in loops.steps(S, x):
             pre_t = (x32[:, t] @ w).reshape(B, 4, d) + b   # in-loop W reads
             carry = _slstm_cell(r_all, pre_t, carry, H)
             hs.append(carry[3])
-        h = torch.stack(hs, dim=1).to(x.dtype)
+        h = torch.stack(loops.fill(hs, S), dim=1).to(x.dtype)
     # post-up-projection gated FFN (factor 4/3)
     a, g = (h @ params["up_proj"]).chunk(2, dim=-1)
     out = (F.gelu(a, approximate="tanh") * g) @ params["down_proj"]
+    out = constrain(out, "batch", "seq", "embed")
     new_state = None
     if return_state or state is not None:
         new_state = dict(zip(("c", "n", "m", "h"), carry))

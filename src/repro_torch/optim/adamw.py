@@ -49,13 +49,41 @@ def _pieces(t: torch.Tensor):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    total = None
+    """sqrt of the sum of squares of every leaf, in float32, as a plain
+    tensor. DTensor leaves: each rank sums its shards' pieces in leaf
+    order, one running sum for each set of mesh dimensions that split a
+    leaf; each sum is reduced over its dimensions, and the sums are added
+    in the order they first appear (one sum on a mesh of one device, so
+    the same additions as for plain leaves)."""
+    totals: Dict[Tuple[int, ...], Any] = {}
     for x in tree_lib.leaves(tree):
-        for piece in _pieces(x):
+        key = _split_dims(x)
+        for piece in _pieces(_local(x)):
             s = piece.float().square().sum()
-            total = s if total is None else total + s
+            totals[key] = s if key not in totals else totals[key] + s
+    total = None
+    for key, s in totals.items():
+        if key:
+            s = _reduce_over(s, key, tree_lib.leaves(tree)[0].device_mesh)
+        total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _split_dims(x) -> Tuple[int, ...]:
+    """Mesh dimensions of more than one device that split a DTensor."""
+    if not hasattr(x, "placements"):
+        return ()
+    mesh = x.device_mesh
+    return tuple(i for i, pl in enumerate(x.placements)
+                 if pl.is_shard() and mesh.size(i) > 1)
+
+
+def _reduce_over(s: torch.Tensor, dims, mesh) -> torch.Tensor:
+    """The sum of a per-rank scalar over mesh dimensions ``dims``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    pl = [Partial() if i in dims else Replicate() for i in range(mesh.ndim)]
+    return DTensor.from_local(s, mesh, pl, run_check=False).full_tensor()
 
 
 def cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
@@ -106,10 +134,22 @@ class AdamW:
     def update(self, grads, state: OptState,
                params) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
         """One step, in place: params, m, v and step are overwritten and
-        returned. Returns (params, state, {"grad_norm", "lr"})."""
+        returned. Returns (params, state, {"grad_norm", "lr"}).
+
+        On a mesh (DTensor leaves) each gradient is first laid out as its
+        m and v (reduced from partial sums, split further where ZeRO-1
+        splits the moments), the update runs on every rank's local shards
+        with the same operations in the same order, and a parameter laid
+        out otherwise than its moments is updated in their layout and laid
+        back. The global norm sums each leaf's local pieces as the meshless
+        update does, then reduces over the mesh dimensions that split the
+        leaf; on a mesh of one device every number is the meshless one."""
+        p_leaves, g_leaves, m_leaves, v_leaves = (
+            tree_lib.leaves(t) for t in (params, grads, state.m, state.v))
+        g_leaves = [_like(g, m) for g, m in zip(g_leaves, m_leaves)]
         state.step.add_(1)
         step = state.step.to(_F32)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(g_leaves)
         scale = (torch.clamp_max(self.grad_clip / (gnorm + 1e-9), 1.0)
                  if self.grad_clip > 0 else None)
         lr = (self.learning_rate(state.step)
@@ -122,10 +162,14 @@ class AdamW:
                                                device=step.device), step))
         c2 = 1.0 / (1 - torch.pow(torch.tensor(b2, dtype=_F32,
                                                device=step.device), step))
-        for p, g, m, v in zip(*(tree_lib.leaves(t) for t in (
-                params, grads, state.m, state.v))):
+        for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
             decay = self.weight_decay > 0 and p.dim() >= 2
-            for pp, gp, mp, vp in zip(*(_pieces(t) for t in (p, g, m, v))):
+            p_here = _like(p, m)
+            # a shard taken from a replicated leaf may be a strided view
+            p_loc = (_local(p) if p_here is p
+                     else _local(p_here).contiguous())
+            for pp, gp, mp, vp in zip(*(_pieces(t) for t in (
+                    p_loc, _local(g).contiguous(), _local(m), _local(v)))):
                 g32 = gp.float()
                 if scale is not None:
                     g32 = g32 * scale
@@ -139,4 +183,23 @@ class AdamW:
                 if decay:
                     u.add_(p32, alpha=self.weight_decay)
                 pp.copy_(torch.addcmul(p32, u, neg_lr))
+            if p_here is not p:
+                from torch.distributed.tensor import DTensor
+
+                p_here = DTensor.from_local(p_loc, m.device_mesh,
+                                            m.placements, run_check=False)
+                _local(p).copy_(_local(_like(p_here, p)))
         return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank; a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` laid out as ``ref`` on its mesh (``t`` itself if both are
+    plain or already alike)."""
+    if not hasattr(t, "placements") or t.placements == ref.placements:
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)

@@ -193,3 +193,46 @@ def test_compress_bytes_count_compressible_leaves_only():
     g = {"w": torch.zeros(64, 128, dtype=torch.bfloat16),
          "b": torch.zeros(128), "m": torch.zeros(32, 64)}
     assert chip_smoke.compress_bytes(g) == 64 * 128 * (2 + 12)
+
+
+def test_mesh_phase_at_smoke_size():
+    """Phase 21 on the CPU (gloo, one device): the mesh's train steps are
+    bit-equal to the meshless ones, its float32 decode tokens equal, the
+    no-op constrain calls of a decode step counted; no kernel launches on
+    the CPU."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("phi4_mini_3_8b")
+    counts, _ = chip_smoke.phase_mesh(cfg, 0, device="cpu")
+    rec = json.loads(chip_smoke.OUT_LINES[-1])
+    assert rec["phase"] == "mesh" and rec["backend"] == "gloo"
+    assert rec["mesh"] == {"data": 1, "model": 1}
+    assert not any(counts.values())
+    assert rec["train"]["mismatched_leaves"] == []
+    assert rec["train"]["losses"]["plain"] == rec["train"]["losses"]["mesh"]
+    assert rec["decode_float32"]["tokens_equal"]
+    assert rec["decode_full"]["tokens_equal"]
+    assert rec["prefill"]["max_abs_logit_diff"] == 0.0
+    # embed, logits, and q, k, v, out, ffn up and down a layer
+    assert rec["constrain"]["calls_per_decode_step"] == 2 + 6 * cfg.n_layers
+    assert rec["constrain"]["noop_call_us"] > 0
+    assert not torch.distributed.is_initialized()
+
+
+def test_dryrun_phase_at_smoke_size():
+    """Phase 22's subprocess and record at smoke size on a fake (4, 2)
+    mesh: every cell ok or skipped as the reference skips it."""
+    rec = chip_smoke.phase_dryrun(
+        timeout=600, smoke=True, mesh="4x2",
+        archs=("phi4_mini_3_8b", "jamba_v01_52b"),
+        shapes=("decode_32k", "long_500k"))
+    got = {(c["arch"], c["shape"]): c["status"] for c in rec["cells"]}
+    assert got == {("phi4_mini_3_8b", "decode_32k"): "ok",
+                   ("phi4_mini_3_8b", "long_500k"): "skipped",
+                   ("jamba_v01_52b", "decode_32k"): "ok",
+                   ("jamba_v01_52b", "long_500k"): "ok"}
+    assert rec["returncode"] == 0
+    for c in rec["cells"]:
+        if c["status"] == "ok":
+            assert c["dominant"] in c["roofline"]
+            assert 0 < c["argument_share_of_80GB"] < 1
