@@ -86,6 +86,19 @@ Phases, each printing one JSON line (and failing the run on any error):
  18. dispatch: the port's dispatch benchmark (t_s, U against task time,
      kernels a task launches), the near-zero-work task 300 times through
      TorchDispatchExecutor, and a raising payload recorded as failed;
+ 18a. scheduler: the port's scheduler core (repro_torch.core). (a) The
+     quickstart's direct and bundled T_total and U, its latency-model fit
+     and the table9_rapid_slurm makespan, each equal to its constant; (b)
+     the control plane's tasks/s in bench/sched_throughput.py's quick
+     regimes on this host; (c) real dispatch through Scheduler +
+     TorchDispatchExecutor, direct against aggregate(job, 16): 4,096
+     dispatch tasks at scales 1 and 16 (wall s, tasks/s, the scheduler's
+     host us a task, U against 1 / (1 + t_s / t), outputs bit-equal
+     between the runs), 256 tasks of one K1 call each at Phi-4-mini's
+     prefill shape (one wgmma launch a task a run, outputs bit-equal to K1
+     called alone) and a raising payload through the retry lifecycle;
+     (d) the map-reduce example on the card (its histogram equals
+     numpy's);
  19. serve_batched: the port's example at Gemma 2B's published widths in
      float32, 1 lane against 8 lanes, identical outputs;
  20. serving_replay: the port's replay --quick (120 requests, lanes 4
@@ -1644,6 +1657,341 @@ def phase_dispatch(device="cuda"):
                              f"{[r['launches_per_task'] for r in rows]}")
 
 
+# scheduler: the port's scheduler core, on the host and dispatching to the
+# card. Golden virtual-time numbers of the reference's scheduler (its
+# examples/quickstart.py and the table9_rapid_slurm regime of its
+# benchmarks/sched_throughput.py); tests/test_torch_scheduler.py holds
+# each against the reference's own output.
+SCHED_GOLDEN = {
+    "quickstart_direct": (3604.2362706283807, 0.06658830941683998),
+    "quickstart_bundled": (253.40171463872, 0.9471127704963359),
+    "fit_n": [4, 8, 48, 240],
+    "fit_dt": [19.252352955080767, 27.486208159201112, 315.33694064652695,
+               3364.2362706283807],
+    "fit": (2.418318915347401, 1.296159686055292, 0.9892134518297224),
+    "table9_rapid_slurm_makespan_s": 3603.806870628357,
+}
+# the fit goes through LAPACK's least squares, whose last bits may differ
+# between builds; every other golden number is plain float arithmetic
+SCHED_FIT_RTOL = 1e-12
+SCHED_SLOTS = 16
+SCHED_SCALES = (1, 16)          # the dispatch benchmark's task, x1 and x16
+SCHED_TASKS = 2048
+SCHED_K1_TASKS = 256
+# phi4's prefill attention: B, S, Hq, Hkv, hd (bf16, causal)
+SCHED_K1_SHAPE = (1, 512, 24, 8, 128)
+
+
+def _timed_executor():
+    """A ``TorchDispatchExecutor`` that records, in ``lat``, the host
+    seconds from each task's start to its completion callback (payload,
+    dispatch and the device wait), so the rest of a run's wall time is the
+    scheduler's."""
+    from repro_torch.core.executor import TorchDispatchExecutor
+
+    class Timed(TorchDispatchExecutor):
+        def __init__(self):
+            super().__init__()
+            self.lat = []
+
+        def run(self, task, done):
+            t0 = time.perf_counter()
+
+            def timed_done(ok):
+                self.lat.append(time.perf_counter() - t0)
+                done(ok)
+            super().run(task, timed_done)
+    return Timed()
+
+
+def _schedule(payloads, bundled: bool, max_restarts: int = 0):
+    """One job of ``payloads`` through the port's Scheduler on
+    ``SCHED_SLOTS`` one-slot nodes, direct or ``aggregate``d into at most
+    one bundle a slot: (executor, job, scheduler, wall seconds)."""
+    from repro_torch.core import (FAMILIES, Job, ResourceManager, Scheduler,
+                                  aggregate)
+
+    rm = ResourceManager()
+    rm.add_nodes(SCHED_SLOTS, slots=1)
+    ex = _timed_executor()
+    sched = Scheduler(rm, profile=FAMILIES["inproc"], executor=ex)
+    job = Job.array(len(payloads), payloads=payloads)
+    job.max_restarts = max_restarts
+    if bundled:
+        job = aggregate(job, slots=SCHED_SLOTS)
+    t0 = time.perf_counter()
+    sched.submit(job)
+    sched.run()
+    return ex, job, sched, time.perf_counter() - t0
+
+
+def _task_outputs(ex, job, bundled: bool) -> list:
+    """Every original task's output in task order (a bundle's result is
+    the list of its tasks' outputs); raises unless every task completed."""
+    states = {t.state.value for t in job.tasks}
+    if states != {"completed"} or ex.errors:
+        raise AssertionError(f"scheduler: task states {states}, errors "
+                             f"{ex.errors}")
+    outs = [ex.results[t.key] for t in job.tasks]
+    return [o for b in outs for o in b] if bundled else outs
+
+
+def _on(dev, outs) -> bool:
+    return all(isinstance(o, torch.Tensor) and o.device.type == dev.type
+               for o in outs)
+
+
+def sched_golden() -> dict:
+    """The quickstart's direct and bundled T_total and U, its model fit and
+    the table9_rapid_slurm makespan, on this host; raises unless each
+    equals its constant."""
+    from repro_torch.bench import sched_throughput
+    from repro_torch.examples import quickstart
+
+    g = SCHED_GOLDEN
+    regime = next(r for r in sched_throughput.FIFO_REGIMES
+                  if r[0] == "table9_rapid_slurm")
+    t0 = time.perf_counter()
+    ns, dts, fit = quickstart.model_fit()
+    got = {"quickstart_direct": quickstart.run(False),
+           "quickstart_bundled": quickstart.run(True),
+           "fit_n": ns, "fit_dt": dts,
+           "fit": (fit.t_s, fit.alpha_s, fit.r2),
+           "table9_rapid_slurm_makespan_s": sched_throughput.run_regime(
+               *regime)["virtual_makespan_s"]}
+    equal = {k: got[k] == g[k] for k in g if k != "fit"}
+    equal["fit"] = all(abs(a - b) <= SCHED_FIT_RTOL * abs(b)
+                       for a, b in zip(got["fit"], g["fit"]))
+    if not all(equal.values()):
+        raise AssertionError(f"scheduler golden numbers: {got} against "
+                             f"{g}")
+    return {**got, "equal": equal, "seconds": time.perf_counter() - t0}
+
+
+def _sched_runs(dev, payloads, modes, want=None, rounds: int = 2):
+    """Each of ``modes`` ("aggregated": the payloads queued back to back
+    outside the scheduler, one wait; "direct" and "bundled" through
+    ``_schedule``), ``rounds`` times in turns, the order reversed every
+    other round, so a drift of the host's speed falls on all alike; the
+    hooks ``before(mode)``/``after(mode, rec)`` of ``modes`` frame each
+    run. The first payload runs once before, untimed. Each run's outputs
+    are held against ``want`` (by default the first run's) bit for bit and
+    then dropped, so later runs allocate no new device memory. Returns
+    {mode: [one record a run]}."""
+    recs = {m: [] for m in modes}
+    payloads[0]()           # first call at these shapes: not timed
+    for r in range(rounds):
+        for mode in (list(modes) if r % 2 == 0 else list(modes)[::-1]):
+            before, after = modes[mode]
+            before()
+            if mode == "aggregated":
+                t0 = time.perf_counter()
+                res = [p() for p in payloads]
+                _sync(dev)
+                rec = {"wall_s": time.perf_counter() - t0}
+            else:
+                ex, job, sched, wall = _schedule(payloads,
+                                                 mode == "bundled")
+                res = _task_outputs(ex, job, mode == "bundled")
+                lat = sorted(ex.lat)
+                rec = {"wall_s": wall, "scheduled_tasks": sched.dispatched,
+                       "executor_s": sum(lat),
+                       "host_us_a_task":
+                           (wall - sum(lat)) / sched.dispatched * 1e6,
+                       "task_ms_p50": lat[len(lat) // 2] * 1e3,
+                       "task_ms_max": lat[-1] * 1e3}
+            after(mode, rec)
+            want = res if want is None else want
+            rec["on_device"] = _on(dev, res)
+            rec["bit_equal"] = len(res) == len(want) == len(payloads) and \
+                all(_bit_equal(a, b) for a, b in zip(res, want))
+            recs[mode].append(rec)
+            del res
+    return recs
+
+
+def _mean(recs, key):
+    return sum(r[key] for r in recs) / len(recs)
+
+
+def _none(*_):
+    pass
+
+
+def sched_dispatch(dev, scale: int, n_tasks: int, t_s: float,
+                   seed: int) -> dict:
+    """``n_tasks`` dispatch tasks (the dispatch benchmark's task at
+    ``scale``, each on its own seeded 128 x 128 input) queued back to back
+    (t, the task's time), and through the Scheduler and
+    TorchDispatchExecutor direct and bundled, in turns: wall s, tasks/s,
+    the scheduler's host us a scheduled task, U = n t / T against the
+    paper's 1 / (1 + t_s / t); every output bit-equal across the runs."""
+    from repro_torch.bench import dispatch_latency as dl
+
+    step, _ = dl._work_fn(scale, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((n_tasks, dl.D, dl.D), generator=gen, device=dev) \
+        * dl.D ** -0.5
+    payloads = [lambda i=i: step(xs[i]) for i in range(n_tasks)]
+    modes = {m: (_none, _none) for m in ("aggregated", "direct", "bundled")}
+    recs = _sched_runs(dev, payloads, modes)
+    t_task = _mean(recs["aggregated"], "wall_s") / n_tasks
+    rec = {"scale": scale, "tasks": n_tasks, "slots": SCHED_SLOTS,
+           "rounds": len(recs["direct"]),
+           "t_task_aggregated_us": t_task * 1e6,
+           "runs": recs}
+    for mode in ("direct", "bundled"):
+        wall = _mean(recs[mode], "wall_s")
+        rec[mode] = {"wall_s": wall, "tasks_per_s": n_tasks / wall,
+                     "host_us_a_task": _mean(recs[mode], "host_us_a_task"),
+                     "U": n_tasks * t_task / wall}
+    # the paper's law with t_s = eager dispatch's, and with the
+    # scheduler's host time a task added to it
+    rec["model_U_dispatch"] = 1.0 / (1.0 + t_s / t_task)
+    rec["model_U_scheduler"] = 1.0 / (
+        1.0 + (t_s + rec["direct"]["host_us_a_task"] * 1e-6) / t_task)
+    runs = [r for m in recs.values() for r in m]
+    rec["outputs_on_device"] = all(r["on_device"] for r in runs)
+    rec["bit_equal"] = all(r["bit_equal"] for r in runs)
+    if not (rec["outputs_on_device"] and rec["bit_equal"]):
+        raise AssertionError(f"scheduler dispatch: {rec}")
+    return rec
+
+
+def sched_k1(dev, n_tasks: int, shape, seed: int) -> dict:
+    """One job of ``n_tasks`` tasks, each one ``ops.flash_attention`` call
+    (K1) on its own seeded bf16 inputs, through the Scheduler direct and
+    bundled, in turns: K1 launched once a task a run (on the card, each in
+    its ``wgmma`` body), outputs bit-equal to K1 called outside the
+    scheduler."""
+    from repro_torch.kernels import flash_attention, ops
+
+    B, S, Hq, Hkv, hd = shape
+    inputs = []
+    for i in range(n_tasks):
+        gen = torch.Generator(device=dev).manual_seed(seed * 100_003 + i)
+        inputs.append(tuple(
+            torch.randn((B, S, h, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv)))
+    payloads = [lambda qkv=qkv: ops.flash_attention(*qkv, causal=True)
+                for qkv in inputs]
+    cuda = dev.type == "cuda"
+    want = {"wgmma": n_tasks} if cuda else {}
+
+    def after(mode, rec):
+        _sync(dev)
+        counts, by_body = _launches()
+        rec["launches"] = counts["flash_attention"]
+        rec["launches_by_body"] = by_body["flash_attention"]
+        if (counts["flash_attention"] != (n_tasks if cuda else 0)
+                or by_body["flash_attention"] != want or any(
+                    n for k, n in counts.items() if k != "flash_attention")):
+            raise AssertionError(f"scheduler K1 launches {counts}, "
+                                 f"{by_body}, want {want}")
+
+    # K1 called outside the scheduler (each run resets the counts)
+    alone = [(flash_attention.flash_kernel if cuda
+              else flash_attention.flash_attention_ref)(*qkv, causal=True)
+             for qkv in inputs]
+    recs = _sched_runs(dev, payloads, {
+        m: (_reset_launches, after) for m in ("direct", "bundled")},
+        want=alone)
+    runs = [r for m in recs.values() for r in m]
+    rec = {"tasks": n_tasks, "shape": dict(zip(
+        ("B", "S", "Hq", "Hkv", "hd"), shape)), "dtype": "bfloat16",
+        "runs": recs,
+        "launches": sum(r["launches"] for r in runs),
+        "outputs_on_device": all(r["on_device"] for r in runs),
+        "equal_to_k1_alone": all(r["bit_equal"] for r in runs),
+        "finite": all(bool(torch.isfinite(o).all()) for o in alone)}
+    for mode in ("direct", "bundled"):
+        wall = _mean(recs[mode], "wall_s")
+        rec[mode] = {"wall_s": wall, "tasks_per_s": n_tasks / wall,
+                     "host_us_a_task": _mean(recs[mode], "host_us_a_task")}
+    if not (rec["outputs_on_device"] and rec["equal_to_k1_alone"]
+            and rec["finite"]):
+        raise AssertionError(f"scheduler K1 outputs: {rec}")
+    return rec
+
+
+def sched_raising(dev) -> dict:
+    """A job of 8 dispatch tasks whose task 3 raises, with one restart:
+    the raise is recorded as a failed attempt, retried once, and fails
+    the task and the job for good, as in the reference's lifecycle; the
+    other tasks complete with their outputs on the device."""
+    from repro_torch.bench import dispatch_latency as dl
+
+    step, x = dl._work_fn(1, dev)
+
+    def make(i):
+        def work():
+            if i == 3:
+                raise RuntimeError("payload 3 fails")
+            return step(x * (i + 1))
+        return work
+
+    ex, job, sched, _ = _schedule([make(i) for i in range(8)], False,
+                                  max_restarts=1)
+    tasks = [(t.state.value, t.attempts) for t in job.tasks]
+    rec = {"tasks": tasks, "job": job.state.value,
+           "errors": {k[1]: repr(e) for k, e in ex.errors.items()},
+           "completed_events": sched.completed,
+           "outputs_on_device": _on(dev, ex.results.values())}
+    want = [("completed", 1)] * 8
+    want[3] = ("failed", 2)
+    if (tasks != want or job.state.value != "failed"
+            or list(ex.errors) != [job.tasks[3].key]
+            or not isinstance(ex.errors[job.tasks[3].key], RuntimeError)
+            or len(ex.results) != 7 or sched.completed != 9
+            or not rec["outputs_on_device"]):
+        raise AssertionError(f"scheduler raising payload: {rec}")
+    return rec
+
+
+def phase_scheduler(device="cuda", seed: int = 0, tasks: int = SCHED_TASKS,
+                    k1_tasks: int = SCHED_K1_TASKS, k1_shape=SCHED_K1_SHAPE,
+                    trials: int = 3) -> dict:
+    """The port's scheduler core: (a) golden virtual-time numbers on the
+    host; (b) the control plane's tasks/s in the quick regimes of
+    bench/sched_throughput.py; (c) real dispatch through the Scheduler
+    and TorchDispatchExecutor, direct against ``aggregate``d — the
+    dispatch task at scales 1 and 16, a job of K1 calls, a raising
+    payload; (d) the map-reduce example on the device. Returns K1's
+    launches through the scheduler."""
+    from repro_torch import resolve_device
+    from repro_torch.bench import dispatch_latency as dl
+    from repro_torch.bench import sched_throughput
+    from repro_torch.examples import multilevel_scheduling
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    golden = sched_golden()
+    bench = sched_throughput.main(["--quick", "--trials", str(trials)])
+    t_s = dl.measure_dispatch_ts(dev)
+    rows = [sched_dispatch(dev, scale, tasks, t_s, seed)
+            for scale in SCHED_SCALES]
+    k1 = sched_k1(dev, k1_tasks, k1_shape, seed)
+    raising = sched_raising(dev)
+    _reset_launches()
+    mapreduce = multilevel_scheduling.run(dev)
+    counts = _check_no_launches("scheduler map-reduce")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "scheduler", "seconds": seconds, "golden": golden,
+          "control_plane": [{k: r[k] for k in (
+              "name", "policy", "jobs", "tasks_per_job", "slots_total",
+              "total_tasks", "tasks_per_s", "wall_s")}
+              for r in bench["regimes"]],
+          "control_plane_trials": trials, "t_s_us": t_s * 1e6,
+          "dispatch": rows, "k1": k1, "raising_payload": raising,
+          "map_reduce": {**mapreduce, "launches": counts}})
+    by_body = {}
+    for runs in k1["runs"].values():
+        for r in runs:
+            for body, n in r["launches_by_body"].items():
+                by_body[body] = by_body.get(body, 0) + n
+    return {"flash_attention": k1["launches"], "by_body": by_body}
+
+
 def phase_serve_batched(device="cuda", full: bool = True):
     """The port's examples/serve_batched.py on Gemma 2B (published widths
     with ``full``) in float32: 1 lane and 8 lanes must give identical
@@ -2136,6 +2484,9 @@ def main() -> int:
     # the scheduler's real-dispatch path
     with deadline(120, "dispatch"):
         phase_dispatch()
+    # the port's scheduler core, dispatching real tasks (K1 among them)
+    with deadline(120, "scheduler"):
+        sched = phase_scheduler(seed=args.seed)
     with deadline(240, "serve_batched"):
         batched, batched_body = phase_serve_batched()
     with deadline(300, "serving_replay"):
@@ -2162,13 +2513,15 @@ def main() -> int:
         "launches_serve_batched": batched["flash_attention"],
         "launches_serving_replay": replay["flash_attention"],
         "launches_mesh_prefill": mesh_counts["flash_attention"],
+        "launches_scheduler": sched["flash_attention"],
         "launches_by_body": {"phi4": phi4_body["flash_attention"],
                              "granite": granite_body["flash_attention"],
                              "jamba": jamba_body["flash_attention"],
                              "serve_batched": batched_body["flash_attention"],
                              "serving_replay": replay_body[
                                  "flash_attention"],
-                             "mesh_prefill": mesh_body["flash_attention"]},
+                             "mesh_prefill": mesh_body["flash_attention"],
+                             "scheduler": sched["by_body"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

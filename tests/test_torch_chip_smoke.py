@@ -1,8 +1,8 @@
 """The pure helpers of chip_smoke.py, on the CPU: the ptxas report parser
 its build check reads for spills, the bounds it prints beside each
 kernel's time (the selective scan's with the exp unit), the model FLOPs of
-a train step, and the training, fault-tolerance, compression, dispatch
-and example phases at smoke size."""
+a train step, and the training, fault-tolerance, compression, dispatch,
+scheduler and example phases at smoke size."""
 import importlib.util
 import json
 from pathlib import Path
@@ -188,6 +188,40 @@ def test_dispatch_and_serving_phases_run_on_the_cpu(capsys):
     assert recs["serving_replay"]["smoke_invariant"]
     assert [r["lanes"] for r in recs["serving_replay"]["rows"]] == [4, 16]
 
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_scheduler_phase_runs_on_the_cpu(capsys):
+    """The scheduler phase on the CPU at a small size: the golden numbers
+    equal their constants, real dispatch through the port's Scheduler and
+    TorchDispatchExecutor (direct and bundled outputs bit-equal), K1's
+    tasks through its plain version (no launch), the raising payload's
+    retry lifecycle and the map-reduce example."""
+    rec = chip_smoke.phase_scheduler(device="cpu", tasks=48, k1_tasks=3,
+                                     k1_shape=(1, 40, 4, 2, 32), trials=1)
+    assert rec == {"flash_attention": 0, "by_body": {}}
+    out = capsys.readouterr().out
+    sched = [json.loads(line) for line in out.splitlines()
+             if line.startswith('{"phase": "scheduler"')][-1]
+    assert all(sched["golden"]["equal"].values())
+    from repro_torch.bench import sched_throughput
+    assert [r["name"] for r in sched["control_plane"]] == [
+        r[0] for r in sched_throughput.QUICK_FIFO
+        + sched_throughput.QUICK_POLICY]
+    for row in sched["dispatch"]:
+        assert row["bit_equal"] and row["outputs_on_device"]
+        assert [len(row["runs"][m]) for m in
+                ("aggregated", "direct", "bundled")] == [2, 2, 2]
+        assert [r["scheduled_tasks"] for r in row["runs"]["bundled"]] == [
+            chip_smoke.SCHED_SLOTS] * 2
+        assert row["direct"]["host_us_a_task"] > 0
+    assert [row["scale"] for row in sched["dispatch"]] == [1, 16]
+    k1 = sched["k1"]
+    assert k1["equal_to_k1_alone"] and k1["launches"] == 0
+    raising = sched["raising_payload"]
+    assert raising["tasks"][3] == ["failed", 2] and raising["job"] == \
+        "failed"
+    assert sched["map_reduce"]["total"] == 256 * 2000
 
 def test_compress_bytes_count_compressible_leaves_only():
     g = {"w": torch.zeros(64, 128, dtype=torch.bfloat16),
