@@ -1,4 +1,9 @@
-"""PyTorch port of the model stack and serving engine, for one NVIDIA H100.
+"""PyTorch port of the system, for one NVIDIA H100: the model stack and
+serving engine, training, the scheduler core (``core``: queues, policies,
+the wave-batched scheduler, multilevel aggregation, the fault plane), the
+workload subsystem (``workloads``: job specs, synthetic and SWF sources,
+the streaming injector, the metrics tap), the metrics registry (``obs``)
+and the paper's benchmark drivers (``bench``).
 
 The JAX package ``repro`` is the reference; this package imports nothing
 from it. Entry points run on ``"cuda"`` unless the caller passes

@@ -41,6 +41,10 @@ from repro_torch.core import (FAMILIES, Job, LatencyProfile, ResourceManager,
                               ResourceRequest, Scheduler, SchedulerConfig)
 from repro_torch.core.policies import LocalityPolicy, make_policy
 
+# the committed throughput anchor (the reference's full sweep), read by
+# --check-baseline and never written
+ANCHOR = Path(__file__).resolve().parents[3] / "BENCH_sched_throughput.json"
+
 # Virtual-cost profile: small but nonzero costs exercise the full latency
 # model (serial clock, queue-depth charge) without dominating virtual time.
 FAST = LatencyProfile(name="fast", central_cost=1e-4, queue_coeff=1e-9,
@@ -228,12 +232,12 @@ def main(argv=None) -> Dict:
                          "(the engine is deterministic, so trials differ "
                          "only by allocator/cache/GC noise — best-of-N "
                          "measures the code path, not the box)")
-    ap.add_argument("--check-baseline", type=Path, default=None,
-                    metavar="BENCH_JSON",
-                    help="after running, compare tasks/s against an anchor "
-                         "written by an earlier run (--out), or the "
-                         "reference's BENCH_sched_throughput.json, for "
-                         "regimes present in both, and fail on >3x "
+    ap.add_argument("--check-baseline", nargs="?", type=Path, const=ANCHOR,
+                    default=None, metavar="BENCH_JSON",
+                    help="after running, compare tasks/s against the "
+                         "committed anchor (default BENCH_sched_throughput"
+                         ".json) or one written by an earlier run (--out), "
+                         "for regimes present in both, and fail on >3x "
                          "regressions — generous slack so machine "
                          "variance doesn't flake, but real hot-path "
                          "regressions (an accidental per-event fallback, "

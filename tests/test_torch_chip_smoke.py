@@ -2,9 +2,11 @@
 its build check reads for spills, the bounds it prints beside each
 kernel's time (the selective scan's with the exp unit), the model FLOPs of
 a train step, and the training, fault-tolerance, compression, dispatch,
-scheduler and example phases at smoke size."""
+scheduler and example phases at smoke size, and the workloads phase's
+comparisons with the committed experiments/ artifacts."""
 import importlib.util
 import json
+import math
 from pathlib import Path
 
 import pytest
@@ -192,13 +194,16 @@ def test_dispatch_and_serving_phases_run_on_the_cpu(capsys):
 
 @pytest.mark.usefixtures("one_thread")
 def test_scheduler_phase_runs_on_the_cpu(capsys):
-    """The scheduler phase on the CPU at a small size: the golden numbers
-    equal their constants, real dispatch through the port's Scheduler and
-    TorchDispatchExecutor (direct and bundled outputs bit-equal), K1's
-    tasks through its plain version (no launch), the raising payload's
-    retry lifecycle and the map-reduce example."""
+    """The scheduler phase on the CPU at a small size (without the
+    throughput gate, which holds the card's host to the committed anchor;
+    tests/test_torch_bench_workloads.py drives the gate): the golden
+    numbers equal their constants, real dispatch through the port's
+    Scheduler and TorchDispatchExecutor (direct and bundled outputs
+    bit-equal), K1's tasks through its plain version (no launch), the
+    raising payload's retry lifecycle and the map-reduce example."""
     rec = chip_smoke.phase_scheduler(device="cpu", tasks=48, k1_tasks=3,
-                                     k1_shape=(1, 40, 4, 2, 32), trials=1)
+                                     k1_shape=(1, 40, 4, 2, 32), trials=1,
+                                     check_baseline=False)
     assert rec == {"flash_attention": 0, "by_body": {}}
     out = capsys.readouterr().out
     sched = [json.loads(line) for line in out.splitlines()
@@ -222,6 +227,86 @@ def test_scheduler_phase_runs_on_the_cpu(capsys):
     assert raising["tasks"][3] == ["failed", 2] and raising["job"] == \
         "failed"
     assert sched["map_reduce"]["total"] == 256 * 2000
+
+
+def _experiment(name):
+    return json.loads((ROOT / "experiments" / name).read_text())
+
+
+def test_grid_comparison_flags_a_row_and_a_fit():
+    """The workloads phase's comparison with the streamed-grid artifact:
+    rows exactly (wall_s aside), fits within SCHED_FIT_RTOL."""
+    art = _experiment("table9_grid_P102400.json")
+    got = json.loads(json.dumps(art))
+    for data in got["families"].values():
+        for r in data["rows"]:
+            r["wall_s"] = 0.5
+    assert chip_smoke.grid_mismatches(got, art) == []
+    got["families"]["mesos"]["fit"]["r2"] *= 1 + 1e-13
+    assert chip_smoke.grid_mismatches(got, art) == []
+    got["families"]["mesos"]["fit"]["t_s"] *= 1 + 1e-9
+    row = got["families"]["slurm"]["rows"][1]
+    row["T_total"] = math.nextafter(row["T_total"], math.inf)
+    assert chip_smoke.grid_mismatches(got, art) == ["slurm rows",
+                                                    "mesos fit"]
+
+
+def test_fault_comparison_reads_sums_as_python_3_12_does():
+    """The fault sweep's one mean that Python 3.12's compensated sum()
+    computes 2 ulp off the artifact's is read as today's; any other
+    difference is flagged."""
+    art = _experiment("fault_replay_P1408.json")
+    got = json.loads(json.dumps(art))
+    assert chip_smoke.fault_mismatches(got, art) != []
+    for row in got["rows"]:
+        for (a, b), (_, now) in chip_smoke.FAULT_SUM_312.get(
+                (row["set"], row["fault_profile"]), {}).items():
+            row[a][b] = now
+        row["wall_s"] = 0.0
+    assert chip_smoke.fault_mismatches(got, art) == []
+    got["rows"][3]["requeues"] += 1
+    assert chip_smoke.fault_mismatches(got, art) == [
+        "row 3 (rapid churn_mtbf4000): requeues"]
+
+
+def test_fault_sum_constant_is_the_references():
+    """FAULT_SUM_312 against the reference's own fault_replay: today's
+    mean is what the reference computes, the artifact's is the plain left
+    fold of the same detection latencies."""
+    import functools
+    import operator
+    import sys
+    from dataclasses import replace
+
+    sys.path.insert(0, str(ROOT))
+    import benchmarks.fault_replay as ref
+    from repro.core import faults
+
+    seen = []
+    summary = faults.FaultPlane.summary
+
+    def spy(plane):
+        seen.append(list(plane.detection_latency))
+        return summary(plane)
+
+    ((set_name, profile), fields), = chip_smoke.FAULT_SUM_312.items()
+    (was, now), = fields.values()
+    faults.FaultPlane.summary = spy
+    try:
+        t, n = {s: (t, n) for s, t, n in ref.TASK_SETS}[set_name]
+        silent = replace(ref.FAULT_PROFILES["silent"], mtbf=8000.0,
+                         name=profile)
+        row, _ = ref.run_cell("slurm", t, n, ref.P, silent, fault_seed=1,
+                              heartbeat_interval=5.0, set_name=set_name)
+    finally:
+        faults.FaultPlane.summary = summary
+    assert row["detection_latency_s"]["mean"] == now
+    lat = seen[-1]
+    assert functools.reduce(operator.add, lat, 0.0) / len(lat) == was
+    art = next(r for r in _experiment("fault_replay_P1408.json")["rows"]
+               if (r["set"], r["fault_profile"]) == (set_name, profile))
+    assert art["detection_latency_s"]["mean"] == was
+
 
 def test_compress_bytes_count_compressible_leaves_only():
     g = {"w": torch.zeros(64, 128, dtype=torch.bfloat16),
