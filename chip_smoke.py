@@ -114,6 +114,27 @@ Phases, each printing one JSON line (and failing the run on any error):
      equal to fault_replay_P1408.json; both replay drivers' --quick. Rows
      compare exactly (host-clock fields aside), fits within 1e-12; each
      run's wall seconds on a line of its own;
+ 18c. runtime: the rest of repro_torch.obs and the wall-clock runtime
+     repro_torch.rt. (a) bench/self_latency.py's full sweep on this host
+     (wave, per-event, many-jobs arena and object; P = 1,408, 3 trials),
+     its gate (wave r2 >= 0.99), its profiled pass and --quick, each fit
+     beside the committed reference run's (experiments/self_latency.json,
+     another host); (b) phase 18a's direct dispatch runs (2,048 tasks at
+     scales 1 and 16, TorchDispatchExecutor) once more under SelfProfiler,
+     untimed: each phase's self us a task and share, beside the same job
+     on the wave path with no executor; (c) AsyncRuntime with 4 workers x
+     8 slots: (t_s, alpha_s) on the wall clock over bench/rt_replay.py's
+     sizes on InMemoryTransport and loopback SocketTransport, with
+     zero-work tasks and with the dispatch task run on each slot thread's
+     own stream (outputs bit-equal to the task alone); 256 K1 tasks at
+     Phi-4-mini's prefill shape leased over InMemoryTransport (outputs
+     bit-equal to K1 alone, exactly 256 wgmma launches); the chaos soak
+     with the dispatch task (every task once or quarantined); one socket
+     run under a FlightRecorder, its Chrome trace written beside --out's
+     file (else under build/)
+     and its longest complete-to-dispatch gaps; (d) rt_replay --quick
+     --check-baseline and self_latency --quick. No thread it starts
+     outlives the phase;
  19. serve_batched: the port's example at Gemma 2B's published widths in
      float32, 1 lane against 8 lanes, identical outputs;
  20. serving_replay: the port's replay --quick (120 requests, lanes 4
@@ -132,7 +153,8 @@ Phases, each printing one JSON line (and failing the run on any error):
      Jamba and xLSTM at full size × the four assigned shapes on the
      (16, 16) mesh: no failed cell, each cell's dominant roofline term and
      argument bytes a device against the card's 80 GB.
-Phases 15-18 and 18b launch no kernel of the port, and fail if one does.
+Phases 15-18 and 18b launch no kernel of the port, and fail if one does;
+18c launches K1 in its K1 job only.
 Every serving phase also checks that each launch took its main-path body
 (``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3.
 Each phase runs under a deadline: a phase that hangs ends the run with an
@@ -1719,10 +1741,12 @@ def _timed_executor():
     return Timed()
 
 
-def _schedule(payloads, bundled: bool, max_restarts: int = 0):
+def _schedule(payloads, bundled: bool, max_restarts: int = 0,
+              attach=None):
     """One job of ``payloads`` through the port's Scheduler on
     ``SCHED_SLOTS`` one-slot nodes, direct or ``aggregate``d into at most
-    one bundle a slot: (executor, job, scheduler, wall seconds)."""
+    one bundle a slot: (executor, job, scheduler, wall seconds).
+    ``attach(scheduler)`` installs an observer before the submit."""
     from repro_torch.core import (FAMILIES, Job, ResourceManager, Scheduler,
                                   aggregate)
 
@@ -1730,6 +1754,8 @@ def _schedule(payloads, bundled: bool, max_restarts: int = 0):
     rm.add_nodes(SCHED_SLOTS, slots=1)
     ex = _timed_executor()
     sched = Scheduler(rm, profile=FAMILIES["inproc"], executor=ex)
+    if attach is not None:
+        attach(sched)
     job = Job.array(len(payloads), payloads=payloads)
     job.max_restarts = max_restarts
     if bundled:
@@ -2094,7 +2120,8 @@ def _wall(rec: dict, name: str, fn):
     t0 = time.perf_counter()
     out = fn()
     rec["wall_s"][name] = time.perf_counter() - t0
-    print(f"workloads {name}: wall_s {rec['wall_s'][name]}", flush=True)
+    print(f"{rec['phase']} {name}: wall_s {rec['wall_s'][name]}",
+          flush=True)
     return out
 
 
@@ -2217,6 +2244,459 @@ def phase_workloads() -> None:
     emit(rec)
     if bad:
         raise AssertionError(f"workloads: {bad}")
+
+
+# runtime: the rest of the port's obs (flight recorder, self-profiler) and
+# its wall-clock runtime rt, with tasks leased to worker threads that run
+# them on the card. The committed reference run of self_latency (its host,
+# not this one) is printed beside this host's fits.
+RT_SELF_LATENCY_ARTIFACT = "self_latency.json"
+RT_REPLAY_ARTIFACT = "rt_replay.json"
+RT_K1_TASKS = 256
+# the traced socket run's Chrome trace: beside --out's file, else in build/
+RT_TRACE = ROOT / "build" / "rt_socket_trace.json"
+RT_TRACE_N = 512                # tasks of the traced socket run
+RT_GAPS = 5                     # longest complete -> next dispatch gaps
+RT_MEMORY_SLACK = 64 << 20      # bytes the phase may leave allocated
+
+
+def _memory(dev) -> dict:
+    """The caching allocator's allocated and reserved bytes now."""
+    if dev.type != "cuda":
+        return {}
+    return {"allocated": torch.cuda.memory_allocated(dev),
+            "reserved": torch.cuda.memory_reserved(dev)}
+
+
+def _release_workspaces(dev, start: dict) -> dict:
+    """Frees what the slot threads left on the card: cuBLAS keeps a
+    workspace for each (handle, stream) pair a thread met, for the life
+    of the process (32 MB each under ``:4096:8``; hundreds over the
+    runtime's fleets of fresh threads). Returns the memory before and
+    after; raises unless allocated bytes are back within
+    ``RT_MEMORY_SLACK`` of ``start``'s."""
+    if dev.type != "cuda":
+        return {}
+    held = _memory(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    rec = {"held": held, "released": _memory(dev)}
+    if rec["released"]["allocated"] > start["allocated"] + RT_MEMORY_SLACK:
+        raise AssertionError(f"runtime: memory not released: start "
+                             f"{start}, {rec}")
+    return rec
+
+
+def _threads_settle(before: set, timeout: float = 10.0) -> list:
+    """Names of the threads started since ``before`` that are still alive
+    after ``timeout`` seconds (worker slots end within one 0.2 s poll)."""
+    end = time.monotonic() + timeout
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in before and t.is_alive()]
+        if not left or time.monotonic() > end:
+            return left
+        time.sleep(0.05)
+
+
+def rt_self_latency(procs: int, trials: int) -> dict:
+    """bench/self_latency.py on this host: the full sweep (wave, per-event,
+    many-jobs arena and object) with the profiled pass at the largest n,
+    held to the driver's gate (wave r2 >= 0.99), each fit beside the
+    committed reference run's; then the driver's --quick with its trace
+    round-trip. A miss of the gate, a property of the host's timing noise
+    and not of the schedule (every run's tasks are counted), is reported
+    as a failure in ``gate`` and printed; the phase goes on."""
+    from repro_torch.bench import self_latency
+
+    res = self_latency.run(procs, trials)
+    gate = {"min_r2": 0.99, "wave_r2": res["engine"]["wave"]["r2"],
+            "passed": True}
+    try:
+        self_latency.gate(res)
+    except SystemExit as e:
+        gate.update(passed=False, failure=str(e))
+        print(f"runtime self_latency: FAILED the gate: {e}", flush=True)
+    committed = _artifact(RT_SELF_LATENCY_ARTIFACT)["engine"]
+    fits = {}
+    for path, fit in res["engine"].items():
+        ref = committed[path]
+        fits[path] = {"t_s_us": fit["t_s"] * 1e6, "alpha_s": fit["alpha_s"],
+                      "r2": fit["r2"],
+                      "committed_t_s_us": ref["t_s"] * 1e6,
+                      "committed_alpha_s": ref["alpha_s"],
+                      "committed_r2": ref["r2"]}
+        print(f"runtime self_latency {path}: t_s {fits[path]['t_s_us']} us "
+              f"alpha {fit['alpha_s']} r2 {fit['r2']} (this host); "
+              f"committed {fits[path]['committed_t_s_us']} us alpha "
+              f"{ref['alpha_s']} (the reference's host)", flush=True)
+    quick = self_latency.quick()
+    return {"P": procs, "trials": trials, "gate": gate, "fits": fits,
+            "points": {k: v["points"] for k, v in res["engine"].items()},
+            "phases": res["phases"], "quick_trace": quick["trace"],
+            "committed_host": "the reference author's host "
+                              "(experiments/self_latency.json)"}
+
+
+def _phase_split(report: dict, n: int) -> dict:
+    """Each profiled phase's self us a task and share of the profiled
+    time. Under an executor the payload runs from its own loop event
+    (``Scheduler._run_payload``), outside every profiled phase."""
+    total = sum(r["self_s"] for r in report.values())
+    out = {phase: {"calls": r["calls"], "self_us_a_task": r["self_s"] / n
+                   * 1e6, "share": r["self_s"] / total if total else 0.0}
+           for phase, r in report.items()}
+    out["profiled_us_a_task"] = total / n * 1e6
+    return out
+
+
+def rt_profile_dispatch(dev, scales, n_tasks: int, seed: int) -> list:
+    """Phase 18a's direct runs once more, untimed, under SelfProfiler: the
+    dispatch task at each scale, ``n_tasks`` tasks through the Scheduler
+    and TorchDispatchExecutor (the per-event path); beside each, the same
+    job of zero-work virtual tasks on the wave path with no executor."""
+    from repro_torch.bench import dispatch_latency as dl
+    from repro_torch.core import (FAMILIES, Job, ResourceManager, Scheduler,
+                                  SchedulerConfig)
+    from repro_torch.obs import SelfProfiler
+
+    rows = []
+    for scale in scales:
+        step, _ = dl._work_fn(scale, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        xs = torch.randn((n_tasks, dl.D, dl.D), generator=gen, device=dev) \
+            * dl.D ** -0.5
+        payloads = [lambda i=i: step(xs[i]) for i in range(n_tasks)]
+        payloads[0]()
+        prof = SelfProfiler()
+        ex, job, sched, wall = _schedule(payloads, False, attach=prof.attach)
+        _task_outputs(ex, job, False)        # raises unless all completed
+        executor_s = sum(ex.lat)
+        direct = _phase_split(prof.report(), n_tasks)
+        direct.update(wall_s=wall, executor_us_a_task=executor_s / n_tasks
+                      * 1e6, host_us_a_task=(wall - executor_s)
+                      / sched.dispatched * 1e6,
+                      task_ms_max=max(ex.lat) * 1e3)
+        # the event loop, the payload's event and the executor's wrapper
+        direct["unprofiled_us_a_task"] = (direct["host_us_a_task"]
+                                          - direct["profiled_us_a_task"])
+        rm = ResourceManager()
+        rm.add_nodes(SCHED_SLOTS, slots=1)
+        virt = Scheduler(rm, profile=FAMILIES["inproc"],
+                         config=SchedulerConfig(wave_batching=True))
+        vprof = SelfProfiler().attach(virt)
+        t0 = time.perf_counter()
+        virt.submit(Job.array(n_tasks, durations=[0.0] * n_tasks))
+        virt.run()
+        vwall = time.perf_counter() - t0
+        wave = _phase_split(vprof.report(), n_tasks)
+        wave.update(wall_s=vwall, host_us_a_task=vwall / n_tasks * 1e6)
+        wave["unprofiled_us_a_task"] = (wave["host_us_a_task"]
+                                        - wave["profiled_us_a_task"])
+        rows.append({"scale": scale, "tasks": n_tasks, "direct": direct,
+                     "wave_no_executor": wave})
+        print(f"runtime profile x{scale}: direct {direct['host_us_a_task']} "
+              f"host us a task, wave {wave['host_us_a_task']}", flush=True)
+        del xs, payloads, ex
+    return rows
+
+
+def _trace_gaps(events, k: int) -> dict:
+    """From a flight record (times in seconds since the runtime started):
+    the longest wall gaps from a ``complete`` to the first ``dispatch``
+    recorded after it and their median, and each task's span from its
+    dispatch to its completion (the lease's round trip: the grant waits
+    for a claim, the worker runs the payload, the result comes back)."""
+    gaps, pending, spans = [], [], []
+    for t, kind, _job, _task, _node, aux in events:
+        if kind == "complete":
+            pending.append(t)
+            spans.append(t - aux)           # aux: the dispatch time
+        elif kind == "dispatch" and pending:
+            gaps += [(t - tc, tc) for tc in pending]
+            pending = []
+    gaps.sort(reverse=True)
+    spans.sort()
+
+    def at(v, q):
+        return v[min(int(len(v) * q), len(v) - 1)] * 1e3 if v else 0.0
+
+    return {"complete_to_next_dispatch": {
+                "longest_ms": [g * 1e3 for g, _ in gaps[:k]],
+                "at_s": [t for _, t in gaps[:k]],
+                "median_ms": at(sorted(g for g, _ in gaps), 0.5),
+                "gaps": len(gaps)},
+            "dispatch_to_complete": {"p50_ms": at(spans, 0.5),
+                                     "p99_ms": at(spans, 0.99),
+                                     "max_ms": at(spans, 1.0),
+                                     "tasks": len(spans)}}
+
+
+def rt_wall_fits(dev, mem_sizes, sock_sizes, trials: int,
+                 seed: int) -> dict:
+    """bench/rt_replay.py's sweep (4 workers x 8 slots) on both
+    transports, with the zero-work payload and with the dispatch task (128
+    x 128 float32 tanh(x @ x) at scale 1, run on the slot thread's own
+    stream, waiting on its event); every dispatch run's outputs held bit
+    for bit against the task run alone; the zero-work fits beside the
+    committed reference run's (experiments/rt_replay.json, another host).
+    Then one socket run of ``RT_TRACE_N`` dispatch tasks under a
+    FlightRecorder, its Chrome trace exported."""
+    from repro_torch.bench import dispatch_latency as dl
+    from repro_torch.bench import rt_replay
+    from repro_torch.core import Job
+    from repro_torch.obs import FlightRecorder
+    from repro_torch.rt import (FnPayload, InMemoryTransport,
+                                SocketTransport, register_payload)
+    from repro_torch.rt.streams import on_thread_stream
+
+    step, _ = dl._work_fn(1, dev)
+    n_max = max(max(mem_sizes), max(sock_sizes), RT_TRACE_N)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((n_max, dl.D, dl.D), generator=gen, device=dev) \
+        * dl.D ** -0.5
+    want = [step(xs[i]) for i in range(n_max)]
+    _sync(dev)
+    outs = {}
+
+    def task(i):
+        outs[i] = on_thread_stream(lambda: step(xs[i]), dev, (xs[i],))
+
+    register_payload("chip_smoke_dispatch", task)
+
+    def gpu_job(n):
+        outs.clear()
+        return Job.array(n, payloads=[FnPayload("chip_smoke_dispatch", i)
+                                      for i in range(n)])
+
+    bad = []
+
+    def check(n):
+        if sorted(outs) != list(range(n)) or not all(
+                _bit_equal(outs[i], want[i]) for i in range(n)):
+            bad.append(n)
+
+    rec = {}
+    for label, make, sizes in (("in_memory", InMemoryTransport, mem_sizes),
+                               ("socket", SocketTransport, sock_sizes)):
+        zero = rt_replay.sweep(label, make, sizes, trials)
+        gpu = rt_replay.sweep(f"{label}+gpu", make, sizes, trials,
+                              make_job=gpu_job, check=check)
+        ref = _artifact(RT_REPLAY_ARTIFACT)["transports"][label]
+        rec[label] = {"zero_work": zero, "dispatch_task": gpu,
+                      "committed_zero_work": {k: ref[k] for k in (
+                          "t_s", "alpha_s", "r2")},
+                      "added_us_a_task": [
+                          (g["dt_s"] - z["dt_s"]) / g["n"] * 1e6
+                          for z, g in zip(zero["points"], gpu["points"])]}
+    if bad:
+        raise AssertionError(f"runtime: dispatch outputs differ at n {bad}")
+    recorder = FlightRecorder()
+    wall = rt_replay.measure_once(SocketTransport, RT_TRACE_N, gpu_job,
+                                  attach=lambda rt: recorder.attach(rt.sch))
+    check(RT_TRACE_N)
+    if bad:
+        raise AssertionError("runtime: traced socket run's outputs differ")
+    RT_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    written = recorder.export_chrome(str(RT_TRACE))
+    counts = recorder.counts()
+    if counts.get("complete") != RT_TRACE_N or \
+            counts.get("dispatch") != RT_TRACE_N:
+        raise AssertionError(f"runtime trace counts {counts}")
+    rec["socket_trace"] = {"tasks": RT_TRACE_N, "wall_s": wall,
+                           "events": len(recorder.events),
+                           "chrome_records": written, "counts": counts,
+                           "file": str(RT_TRACE),
+                           **_trace_gaps(recorder.events, RT_GAPS)}
+    gaps = rec["socket_trace"]
+    print(f"runtime socket trace: {written} records, complete -> next "
+          f"dispatch {gaps['complete_to_next_dispatch']}, dispatch -> "
+          f"complete {gaps['dispatch_to_complete']}", flush=True)
+    del xs, want
+    outs.clear()
+    return rec
+
+
+def rt_k1(dev, n_tasks: int, shape, seed: int) -> dict:
+    """A job of ``n_tasks`` K1 calls (each on its own seeded bf16 inputs)
+    leased over InMemoryTransport to 4 workers x 8 slots, each on its slot
+    thread's stream: every output bit-equal to K1 called alone, and K1
+    launched exactly once a task, each in its ``wgmma`` body on the
+    card."""
+    from repro_torch.bench import rt_replay
+    from repro_torch.core import Job
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.rt import FnPayload, InMemoryTransport, register_payload
+    from repro_torch.rt.streams import on_thread_stream
+
+    B, S, Hq, Hkv, hd = shape
+    inputs = []
+    for i in range(n_tasks):
+        gen = torch.Generator(device=dev).manual_seed(seed * 100_003 + i)
+        inputs.append(tuple(
+            torch.randn((B, S, h, hd), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv)))
+    cuda = dev.type == "cuda"
+    alone = [(flash_attention.flash_kernel if cuda
+              else flash_attention.flash_attention_ref)(*qkv, causal=True)
+             for qkv in inputs]
+    _sync(dev)
+    outs = {}
+
+    def task(i):
+        outs[i] = on_thread_stream(
+            lambda: ops.flash_attention(*inputs[i], causal=True), dev,
+            inputs[i])
+
+    register_payload("chip_smoke_k1", task)
+    job = Job.array(n_tasks, payloads=[FnPayload("chip_smoke_k1", i)
+                                       for i in range(n_tasks)])
+    _reset_launches()
+    _, rt, pool = rt_replay._fleet(InMemoryTransport, lease_ttl=30.0,
+                                   heartbeat_interval=0.2,
+                                   heartbeat_timeout=2.0)
+    try:
+        t0 = time.perf_counter()
+        rt.submit(job)
+        idle = rt.run_until_idle(timeout=rt_replay.POINT_TIMEOUT)
+        wall = time.perf_counter() - t0
+    finally:
+        pool.stop()
+        rt.close()
+    counts, by_body = _launches()
+    rec = {"tasks": n_tasks, "shape": dict(zip(
+        ("B", "S", "Hq", "Hkv", "hd"), shape)), "dtype": "bfloat16",
+        "wall_s": wall, "tasks_per_s": n_tasks / wall,
+        "summary": rt.summary(),
+        "states": sorted({t.state.value for t in job.tasks}),
+        "launches": counts["flash_attention"],
+        "launches_by_body": by_body["flash_attention"],
+        "equal_to_k1_alone": sorted(outs) == list(range(n_tasks)) and all(
+            _bit_equal(outs[i], alone[i]) for i in range(n_tasks)),
+        "finite": all(bool(torch.isfinite(o).all()) for o in alone)}
+    want = {"wgmma": n_tasks} if cuda else {}
+    if not (idle and rec["states"] == ["completed"]
+            and rec["equal_to_k1_alone"] and rec["finite"]
+            and by_body["flash_attention"] == want
+            and counts["flash_attention"] == (n_tasks if cuda else 0)
+            and not any(n for k, n in counts.items()
+                        if k != "flash_attention")):
+        raise AssertionError(f"runtime K1: {rec}, launches {counts}")
+    del inputs, alone
+    outs.clear()
+    return rec
+
+
+def rt_chaos(dev, seed: int) -> dict:
+    """bench/rt_replay.py's chaos soak (drop, dup and delay on the
+    transport; a worker killed, one hung and thawed, one restarted) with
+    the dispatch task as every task's payload: every task completed
+    exactly once or quarantined (the driver asserts it); only the planted
+    faults may cost a task, so no payload raised and every task completed;
+    and every completed task's output bit-equal to the task run alone."""
+    from repro_torch.bench import dispatch_latency as dl
+    from repro_torch.bench import rt_replay
+    from repro_torch.core.job import TaskState
+    from repro_torch.rt import FnPayload, register_payload
+    from repro_torch.rt.streams import on_thread_stream
+
+    jobs, tasks = 2, 40
+    step, _ = dl._work_fn(1, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    xs = torch.randn((jobs * tasks, dl.D, dl.D), generator=gen, device=dev) \
+        * dl.D ** -0.5
+    want = [step(x) for x in xs]
+    _sync(dev)
+    outs, errors = {}, []
+
+    def task(k):
+        try:
+            outs[k] = on_thread_stream(lambda: step(xs[k]), dev, (xs[k],))
+        except Exception as e:
+            errors.append(f"task {k}: {e!r}")
+            raise
+
+    register_payload("chip_smoke_chaos", task)
+    batch = []
+    try:
+        soak = rt_replay.chaos_soak(
+            seed=seed, jobs=jobs, tasks=tasks,
+            payload=lambda j, i: FnPayload("chip_smoke_chaos",
+                                           j * tasks + i),
+            jobs_into=batch)
+    finally:
+        if errors:      # the soak's own checks may fail first
+            print(f"runtime chaos soak: {len(errors)} payloads raised, "
+                  f"first {errors[:3]}", flush=True)
+    done = [j * tasks + t.index for j, job in enumerate(batch)
+            for t in job.tasks if t.state is TaskState.COMPLETED]
+    soak["completed_outputs_equal"] = all(
+        k in outs and _bit_equal(outs[k], want[k]) for k in done)
+    soak["completed_tasks"] = len(done)
+    soak["payload_errors"] = errors[:5]
+    if errors or len(done) != jobs * tasks \
+            or not soak["completed_outputs_equal"]:
+        raise AssertionError(f"runtime chaos soak: {len(errors)} payloads "
+                             f"raised; {soak}")
+    del xs, want
+    outs.clear()
+    return soak
+
+
+def phase_runtime(device="cuda", seed: int = 0, sl_procs: int = None,
+                  sl_trials: int = None, profile_tasks: int = SCHED_TASKS,
+                  mem_sizes=None, sock_sizes=None, trials: int = None,
+                  k1_tasks: int = RT_K1_TASKS, k1_shape=SCHED_K1_SHAPE,
+                  check_baseline: bool = True) -> dict:
+    """(a) bench/self_latency.py on this host: the full sweep, its gate
+    and --quick; (b) phase 18a's direct dispatch runs under SelfProfiler,
+    the host us a task split by phase, beside the wave path with no
+    executor; (c) the wall-clock runtime (AsyncRuntime, 4 workers x 8
+    slots) with zero-work and dispatch tasks on both transports, (t_s,
+    alpha_s) fitted; a job of K1 tasks; the chaos soak with the dispatch
+    task; a flight record of one socket run; (d) rt_replay --quick
+    (--check-baseline unless ``check_baseline`` is False) and
+    self_latency --quick. No thread the phase starts outlives it. Returns
+    K1's launches through the runtime."""
+    from repro_torch import resolve_device
+    from repro_torch.bench import rt_replay, self_latency
+
+    dev = resolve_device(device)
+    t_phase = time.perf_counter()
+    before = {t.ident for t in threading.enumerate()}
+    rec = {"phase": "runtime", "wall_s": {}}
+    rec["self_latency"] = _wall(rec, "self_latency", lambda: rt_self_latency(
+        sl_procs or self_latency.P, sl_trials or self_latency.TRIALS))
+    _reset_launches()
+    rec["memory_start"] = _memory(dev)
+    try:
+        rec["profile"] = _wall(rec, "profile", lambda: rt_profile_dispatch(
+            dev, SCHED_SCALES, profile_tasks, seed))
+        rec["wall"] = _wall(rec, "wall_fits", lambda: rt_wall_fits(
+            dev, mem_sizes or rt_replay.N_MEM,
+            sock_sizes or rt_replay.N_SOCK, trials or rt_replay.TRIALS,
+            seed))
+        rec["chaos"] = _wall(rec, "chaos", lambda: rt_chaos(dev, seed))
+        _check_no_launches("runtime")
+        rec["k1"] = _wall(rec, "k1", lambda: rt_k1(dev, k1_tasks, k1_shape,
+                                                   seed))
+        _reset_launches()
+        _wall(rec, "rt_replay_quick", lambda: rt_replay.main(
+            ["--quick"] + (["--check-baseline"] if check_baseline else [])))
+        _wall(rec, "self_latency_quick",
+              lambda: self_latency.main(["--quick"]))
+        rec["launches"] = _check_no_launches("runtime smokes")
+        rec["leaked_threads"] = _threads_settle(before)
+    finally:
+        rec["memory"] = _release_workspaces(dev, rec["memory_start"])
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"runtime: phase seconds {rec['seconds']}", flush=True)
+    emit(rec)
+    if rec["leaked_threads"]:
+        raise AssertionError(f"runtime: threads outlived the phase: "
+                             f"{rec['leaked_threads']}")
+    return {"flash_attention": rec["k1"]["launches"],
+            "by_body": rec["k1"]["launches_by_body"]}
 
 
 def phase_serve_batched(device="cuda", full: bool = True):
@@ -2611,6 +3091,9 @@ def main() -> int:
     ap.add_argument("--out", default="",
                     help="also write the JSON lines to this file")
     args = ap.parse_args()
+    if args.out:
+        global RT_TRACE
+        RT_TRACE = Path(args.out).parent / RT_TRACE.name
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2717,6 +3200,10 @@ def main() -> int:
     # the workload subsystem and the paper's benchmark drivers, on the host
     with deadline(300, "workloads"):
         phase_workloads()
+    # the rest of obs and the wall-clock runtime rt: tasks (K1 among them)
+    # leased to worker threads that run them on the card
+    with deadline(240, "runtime"):
+        rt_counts = phase_runtime(seed=args.seed)
     with deadline(240, "serve_batched"):
         batched, batched_body = phase_serve_batched()
     with deadline(300, "serving_replay"):
@@ -2744,6 +3231,7 @@ def main() -> int:
         "launches_serving_replay": replay["flash_attention"],
         "launches_mesh_prefill": mesh_counts["flash_attention"],
         "launches_scheduler": sched["flash_attention"],
+        "launches_rt": rt_counts["flash_attention"],
         "launches_by_body": {"phi4": phi4_body["flash_attention"],
                              "granite": granite_body["flash_attention"],
                              "jamba": jamba_body["flash_attention"],
@@ -2751,7 +3239,8 @@ def main() -> int:
                              "serving_replay": replay_body[
                                  "flash_attention"],
                              "mesh_prefill": mesh_body["flash_attention"],
-                             "scheduler": sched["by_body"]},
+                             "scheduler": sched["by_body"],
+                             "rt": rt_counts["by_body"]},
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -48,6 +48,7 @@ from typing import Dict, Optional, Tuple
 from repro_torch.bench.common import CACHE, P, TASK_SETS
 from repro_torch.core import (FAMILIES, FaultPlane, FaultProfile, JobState,
                               ResourceManager, Scheduler, SchedulerConfig)
+from repro_torch.obs import Dashboard
 from repro_torch.workloads import (FAULT_PROFILES, MetricsTap,
                                    StreamingInjector, constant_taskset)
 
@@ -66,7 +67,8 @@ def run_cell(family: str, t: float, n: int, procs: int,
              fault_profile: Optional[FaultProfile] = None, *,
              fault_seed: int = 0, heartbeat_interval: float = 0.0,
              wave_batching: bool = True,
-             set_name: str = "set") -> Tuple[Dict, Dict]:
+             set_name: str = "set",
+             dashboard: bool = False) -> Tuple[Dict, Dict]:
     """One (task set, fault regime) run.
 
     Returns ``(row, signature)``: the row is the JSON-artifact record; the
@@ -100,9 +102,16 @@ def run_cell(family: str, t: float, n: int, procs: int,
     inj = StreamingInjector(s, source, tap=tap)
     plane = (FaultPlane(s, fault_profile, seed=fault_seed)
              if fault_profile is not None else None)
+    dash = None
+    if dashboard:
+        dash = Dashboard(tap.registry, tap=tap).attach(s)
+        if plane is not None:
+            dash.registry.bind_fault_plane(plane)
     w0 = time.time()
     inj.run()
     wall = time.time() - w0
+    if dash is not None:
+        dash.finish()
     assert inj.drained, "task set did not drain"
 
     sts = list(s.stats.values())
@@ -247,6 +256,9 @@ def main(argv=None) -> Dict:
                     help="MTBF sweep point (repeatable); default "
                          f"{MTBF_SWEEP}")
     ap.add_argument("--fault-seed", type=int, default=1)
+    ap.add_argument("--dashboard", action="store_true",
+                    help="live terminal dashboard (stderr) during sweep "
+                         "cells")
     ap.add_argument("--out", type=Path, default=None,
                     help="write the JSON artifact here (by default nothing "
                          "is written)")
@@ -265,7 +277,8 @@ def main(argv=None) -> Dict:
     rows = []
     for sn in chosen:
         t, n = sets[sn]
-        row, _ = run_cell(args.family, t, n, args.P, set_name=sn)
+        row, _ = run_cell(args.family, t, n, args.P, set_name=sn,
+                          dashboard=args.dashboard)
         row["baseline_check"] = (check_baseline_row(row)
                                  if args.P == P else "skipped")
         print(_fmt(row) + f"  baseline={row['baseline_check']}")
@@ -274,20 +287,23 @@ def main(argv=None) -> Dict:
             prof = replace(FAULT_PROFILES["churn"], mtbf=mtbf,
                            name=f"churn_mtbf{int(mtbf)}")
             row, _ = run_cell(args.family, t, n, args.P, prof,
-                              fault_seed=args.fault_seed, set_name=sn)
+                              fault_seed=args.fault_seed, set_name=sn,
+                              dashboard=args.dashboard)
             print(_fmt(row))
             rows.append(row)
         silent = replace(FAULT_PROFILES["silent"], mtbf=8000.0,
                          name="silent_mtbf8000")
         row, _ = run_cell(args.family, t, n, args.P, silent,
                           fault_seed=args.fault_seed,
-                          heartbeat_interval=5.0, set_name=sn)
+                          heartbeat_interval=5.0, set_name=sn,
+                          dashboard=args.dashboard)
         print(_fmt(row))
         rows.append(row)
         rack = replace(FAULT_PROFILES["rack_outage"], domain_mtbf=8000.0,
                        name="rack_outage")
         row, _ = run_cell(args.family, t, n, args.P, rack,
-                          fault_seed=args.fault_seed, set_name=sn)
+                          fault_seed=args.fault_seed, set_name=sn,
+                          dashboard=args.dashboard)
         print(_fmt(row))
         rows.append(row)
 

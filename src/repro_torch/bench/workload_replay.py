@@ -21,7 +21,9 @@ Usage:
         --max-active 2048 --out stream_1M.json        # the 1M-task run
     PYTHONPATH=src python -m repro_torch.bench.workload_replay --quick
 
-The summary JSON is written only to the file ``--out`` names.
+The summary JSON is written only to the file ``--out`` names; ``--html``
+writes the dashboard's static report, ``--dashboard`` renders frames to
+stderr during the run.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from pathlib import Path
 
 from repro_torch.core import FAMILIES as PROFILES
 from repro_torch.core import ResourceManager, Scheduler
+from repro_torch.obs import Dashboard
 from repro_torch.workloads import (MetricsTap, StreamingInjector,
                                    SYNTHETIC_FAMILIES, jobs_from_swf,
                                    synthetic_stream, validate_stream)
@@ -49,13 +52,24 @@ def build_cluster(P: int, profile: str) -> Scheduler:
 
 
 def replay(source, P: int = 256, profile: str = "inproc",
-           max_active: int = 0, label: str = "replay") -> dict:
+           max_active: int = 0, label: str = "replay",
+           dashboard: bool = False, html: Path = None) -> dict:
     sch = build_cluster(P, profile)
     tap = MetricsTap()
     inj = StreamingInjector(sch, source, max_active_jobs=max_active, tap=tap)
+    dash = None
+    if dashboard or html:
+        # batch-only chaining: attached after the tap, it neither triggers
+        # the tap's clobber-replay nor leaves the wave-batched hot path
+        dash = Dashboard(tap.registry, tap=tap).attach(sch)
     w0 = time.time()
     inj.run()
     wall = time.time() - w0
+    if dash is not None:
+        dash.finish()
+        if html:
+            dash.export_html(html, title=label)
+            print(f"-> {html}")
     if not inj.drained:
         raise RuntimeError(f"{label}: stream did not drain "
                            f"({sch.active_jobs} jobs still active)")
@@ -125,6 +139,10 @@ def main(argv=None) -> int:
                     help="injector backpressure: max jobs in flight")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, help="write the summary JSON here")
+    ap.add_argument("--dashboard", action="store_true",
+                    help="live terminal dashboard (stderr) during the run")
+    ap.add_argument("--html", type=Path,
+                    help="write a static HTML report of the run here")
     ap.add_argument("--quick", action="store_true", help="smoke run")
     args = ap.parse_args(argv)
 
@@ -150,7 +168,8 @@ def main(argv=None) -> int:
     else:
         ap.error("pick a source: --swf, --family, or --quick")
     r = replay(src, P=args.P, profile=args.profile,
-               max_active=args.max_active, label=label)
+               max_active=args.max_active, label=label,
+               dashboard=args.dashboard, html=args.html)
     show(r)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -18,6 +18,42 @@ from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
+# per thread: the device indices whose primary context bind_context has
+# made (or found) current on the thread
+_THREAD = threading.local()
+
+
+def bind_context(index: int) -> None:
+    """Make device ``index``'s primary CUDA context current on this thread
+    if the thread has none.
+
+    The TMA bodies encode their tensor maps through the driver
+    (``cuTensorMapEncodeTiled``), which needs a current context. PyTorch
+    binds one lazily, at a thread's first call that needs it; a new thread
+    whose first CUDA work takes a cached block and launches nothing yet (a
+    worker slot of ``repro_torch.rt``) has none, and the encode fails with
+    CUDA_ERROR_INVALID_CONTEXT (launch error 100201). Checked once for
+    each thread and device."""
+    bound = getattr(_THREAD, "bound", None)
+    if bound is None:
+        bound = _THREAD.bound = set()
+    if index in bound:
+        return
+    driver = ctypes.CDLL("libcuda.so.1")
+    ctx = ctypes.c_void_p()
+    if driver.cuCtxGetCurrent(ctypes.byref(ctx)) != 0:
+        raise RuntimeError("cuCtxGetCurrent failed")
+    if not ctx.value:
+        dev = ctypes.c_int()
+        for call, args in (("cuDeviceGet", (ctypes.byref(dev), index)),
+                           ("cuDevicePrimaryCtxRetain",
+                            (ctypes.byref(ctx), dev)),
+                           ("cuCtxSetCurrent", (ctx,))):
+            err = getattr(driver, call)(*args)
+            if err != 0:
+                raise RuntimeError(f"{call} failed: CUresult {err}")
+    bound.add(index)
+
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -101,13 +137,17 @@ class KernelLibrary:
 
     @property
     def launches(self) -> int:
-        return sum(self.launches_by_body.values())
+        with self._lock:
+            return sum(self.launches_by_body.values())
 
     def reset_counts(self) -> None:
         self.launches_by_body = {}
 
     def _count(self, body: str) -> None:
-        self.launches_by_body[body] = self.launches_by_body.get(body, 0) + 1
+        # under the lock: worker threads (repro_torch.rt) launch at once
+        with self._lock:
+            self.launches_by_body[body] = \
+                self.launches_by_body.get(body, 0) + 1
 
     def build(self):
         with self._lock:

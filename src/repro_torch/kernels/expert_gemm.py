@@ -18,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary
+from repro_torch.kernels.build import KernelLibrary, bind_context
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "expert_gemm.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,6 +70,7 @@ class ExpertGemmKernel(KernelLibrary):
         body = _body_for(x, w)
         out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        bind_context(x.device.index)    # the tensor maps need a context
         err = lib.expert_gemm_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                                   _DTYPES[x.dtype], E, M, K, N,
                                   _BODY_CODES[body], stream)

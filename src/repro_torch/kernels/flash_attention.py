@@ -17,7 +17,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary
+from repro_torch.kernels.build import KernelLibrary, bind_context
 
 NEG_INF = -2.3819763e38
 
@@ -99,6 +99,7 @@ class FlashAttentionKernel(KernelLibrary):
         body = _body_for(q, k, v)
         strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        bind_context(q.device.index)    # the tensor maps need a context
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], B, S, T, Hq, Hkv, hd, *strides,

@@ -1,11 +1,31 @@
-"""Observability plane of the port: the metrics registry.
+"""Observability plane of the port: flight recorder, metrics registry,
+self-profiler, live dashboard.
 
-:class:`Registry` (``registry.py``) holds named counters, gauges,
-histograms and series, unifying the engine's scattered metric state;
-``repro_torch.workloads.MetricsTap`` is a thin view over one. A copy of
-the reference's ``repro/obs/registry.py``; the reference's flight
-recorder, self-profiler and dashboard are not in the port yet.
+Four layers, all stdlib-only, all zero-cost when not attached (the engine's
+observation hooks are None-checked; an unobserved run pays one comparison
+per event and nothing else):
+
+* :class:`FlightRecorder` (``trace.py``) — bounded ring-buffer structured
+  event trace of the full task lifecycle, bit-identical between the wave
+  and per-event dispatch paths, exportable as Chrome-trace JSON.
+* :class:`Registry` (``registry.py``) — named counters / gauges /
+  histograms / series unifying the engine's scattered metric state;
+  ``repro_torch.workloads.MetricsTap`` is a thin view over one.
+* :class:`SelfProfiler` (``profile.py``) — wall-clock phase timers
+  attributing the scheduler's *own* CPU time to admission / policy cycle /
+  dispatch / completion / heartbeat sweep (the paper's t_s, measured, not
+  modeled — see ``repro_torch.bench.self_latency``).
+* :class:`Dashboard` (``dashboard.py``) — terminal renderer (and static
+  HTML report) streaming registry series during long runs.
+
+Copies of the reference's ``repro/obs`` with imports rewritten.
 """
+from repro_torch.obs.dashboard import Dashboard
+from repro_torch.obs.profile import SelfProfiler
 from repro_torch.obs.registry import Counter, Gauge, Histogram, Registry
+from repro_torch.obs.trace import FlightRecorder
 
-__all__ = ["Registry", "Counter", "Gauge", "Histogram"]
+__all__ = [
+    "FlightRecorder", "Registry", "Counter", "Gauge", "Histogram",
+    "SelfProfiler", "Dashboard",
+]

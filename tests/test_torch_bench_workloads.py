@@ -181,15 +181,77 @@ def test_drivers_write_only_their_out(tmp_path, capsys):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("argv", [["--dashboard"], ["--html", "r.html"]])
-@pytest.mark.parametrize("driver", [workload_replay, fault_replay])
-def test_dashboard_flags_are_refused(driver, argv, capsys):
-    """The dashboard is not ported: argparse refuses its flags rather than
-    accept and ignore them."""
-    with pytest.raises(SystemExit) as e:
-        driver.main(["--quick", *argv])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+DASHBOARD_RUNS = {
+    "workload_replay": ["--family", "poisson", "--jobs", "300", "--P", "64"],
+    "fault_replay": ["--sets", "long", "--mtbf", "4000"],
+}
+
+
+def _run_driver(side, name, argv, tmp_path, monkeypatch, capsys):
+    """One driver run with the dashboard's final frames kept: (the frames
+    ``finish`` rendered, every frame written to stderr, the HTML report or
+    None). The reference's fault_replay writes its artifact, so it gets an
+    --out; its workload_replay reads sys.argv."""
+    import repro.obs.dashboard as ref_dashboard
+    import repro_torch.obs.dashboard as port_dashboard
+
+    dash_mod = ref_dashboard if side == "reference" else port_dashboard
+    finals = []
+    finish = dash_mod.Dashboard.finish
+
+    def kept(self):
+        finish(self)
+        finals.append(self.render())
+
+    monkeypatch.setattr(dash_mod.Dashboard, "finish", kept)
+    html = tmp_path / f"{side}.html"
+    argv = [a if a != "HTML" else str(html) for a in argv]
+    if name == "fault_replay":
+        argv += ["--out", str(tmp_path / f"{side}.json")]
+    capsys.readouterr()
+    if side == "port":
+        (workload_replay if name == "workload_replay"
+         else fault_replay).main(argv)
+    elif name == "workload_replay":
+        monkeypatch.setattr(sys, "argv", [f"{name}.py", *argv])
+        _ref(name).main()
+    else:
+        _ref(name).main(argv)
+    err = capsys.readouterr().err
+    return finals, err, html.read_text() if html.exists() else None
+
+
+@pytest.mark.parametrize("flag", ["--dashboard", "--html"])
+@pytest.mark.parametrize("name", ["workload_replay", "fault_replay"])
+def test_dashboard_flags_match_the_reference(name, flag, tmp_path,
+                                             monkeypatch, capsys):
+    """Each flag as the reference driver takes it: the frames its
+    dashboard ends each run with and its HTML report equal the reference
+    driver's (the frames between are paced by the wall clock). The
+    reference's fault_replay has no --html, and the port's refuses it too."""
+    argv = DASHBOARD_RUNS[name] + ([flag] if flag == "--dashboard"
+                                   else [flag, "HTML"])
+    if name == "fault_replay" and flag == "--html":
+        for side in ("reference", "port"):
+            with pytest.raises(SystemExit) as e:
+                _run_driver(side, name, argv, tmp_path, monkeypatch, capsys)
+            assert e.value.code == 2
+            assert "unrecognized arguments: --html" in \
+                capsys.readouterr().err
+        return
+    ref = _run_driver("reference", name, argv, tmp_path, monkeypatch, capsys)
+    port = _run_driver("port", name, argv, tmp_path, monkeypatch, capsys)
+    finals, err, html = port
+    assert finals == ref[0] and html == ref[2]
+    # fault_replay: a dashboard on each of the 4 cells of the set
+    assert len(finals) == (4 if name == "fault_replay" else 1)
+    assert err.count("── scheduler @") >= len(finals)
+    assert err.rstrip().endswith(finals[-1])
+    assert "dispatched" in finals[-1] and "latency mean" in finals[-1]
+    if flag == "--html":
+        assert "<svg" in html and "tap.dispatches" in html
+    else:
+        assert html is None
 
 
 # ------------------------------------------------------------- the gate
@@ -207,6 +269,30 @@ def test_check_baseline_defaults_to_the_committed_anchor(monkeypatch,
     sched_throughput.main(["--quick", "--suite", "fifo", "--trials", "1"])
     assert seen == [ROOT / "BENCH_sched_throughput.json"]
     assert sched_throughput.ANCHOR == seen[0] and seen[0].exists()
+    capsys.readouterr()
+
+
+def test_trials_are_taken_in_turns_across_the_regimes(monkeypatch,
+                                                     capsys):
+    """Trial k of every regime runs before trial k + 1 of any; each row is
+    its regime's fastest trial."""
+    walls = iter([0.3, 0.2, 0.1, 0.4, 0.6, 0.5])
+    order = []
+
+    def fake(name, *regime, **kw):
+        order.append(name)
+        return {"name": name, "jobs": 1, "tasks_per_job": 4, "nodes": 1,
+                "slots_total": 1, "policy": "fifo", "total_tasks": 4,
+                "wall_s": (w := next(walls)), "tasks_per_s": 4 / w}
+
+    three = tuple((f"r{i}",) + ONE_REGIME[0][1:] for i in range(3))
+    monkeypatch.setattr(sched_throughput, "QUICK_FIFO", three)
+    monkeypatch.setattr(sched_throughput, "run_regime", fake)
+    rows = sched_throughput.main(["--quick", "--suite", "fifo", "--trials",
+                                  "2"])["regimes"]
+    assert order == ["r0", "r1", "r2"] * 2
+    assert [(r["name"], r["wall_s"]) for r in rows] == \
+        [("r0", 0.3), ("r1", 0.2), ("r2", 0.1)]
     capsys.readouterr()
 
 

@@ -229,6 +229,108 @@ def test_scheduler_phase_runs_on_the_cpu(capsys):
     assert sched["map_reduce"]["total"] == 256 * 2000
 
 
+@pytest.mark.usefixtures("one_thread")
+def test_runtime_phase_runs_on_the_cpu(capsys, monkeypatch, tmp_path):
+    """The runtime phase on the CPU at small sizes (without the throughput
+    gate; self_latency's sweep shortened, its fits reporting r2 1.0 and
+    alpha 1.0 since wall points this small on a loaded CPU need not fit a
+    power law, and tests/test_torch_rt.py drives the gate and --quick's
+    bounds): the profiler's split of the
+    direct dispatch runs, the wall-clock sweeps with zero-work and
+    dispatch tasks (outputs checked), the traced socket run, the chaos
+    soak, K1's tasks through the runtime (its plain version: no launch),
+    the smokes, and no thread left behind."""
+    from repro_torch.bench import self_latency
+
+    monkeypatch.setattr(self_latency, "N_SWEEP", (4096, 8192, 16384))
+    monkeypatch.setattr(self_latency, "J_SWEEP", (256, 512, 1024))
+    fit_points = self_latency.fit_points
+    monkeypatch.setattr(self_latency, "fit_points",
+                        lambda pts: {**fit_points(pts), "r2": 1.0,
+                                     "alpha_s": 1.0})
+    monkeypatch.setattr(chip_smoke, "RT_TRACE_N", 48)
+    monkeypatch.setattr(chip_smoke, "RT_TRACE", tmp_path / "trace.json")
+    rec = chip_smoke.phase_runtime(
+        device="cpu", sl_procs=256, sl_trials=1, profile_tasks=48,
+        mem_sizes=(32, 64), sock_sizes=(16, 32), trials=1, k1_tasks=3,
+        k1_shape=(1, 40, 4, 2, 32), check_baseline=False)
+    assert rec == {"flash_attention": 0, "by_body": {}}
+    out = capsys.readouterr().out
+    rt = [json.loads(line) for line in out.splitlines()
+          if line.startswith('{"phase": "runtime"')][-1]
+    assert set(rt["self_latency"]["fits"]) == {
+        "wave", "per_event", "many_jobs_arena", "many_jobs_object"}
+    assert rt["self_latency"]["quick_trace"]["spans"] == 500
+    assert rt["self_latency"]["gate"]["passed"] is True
+    for row in rt["profile"]:
+        direct, wave = row["direct"], row["wave_no_executor"]
+        # per-event: one dispatch call a task; the wave path far fewer
+        assert direct["dispatch"]["calls"] == 48 > wave["dispatch"]["calls"]
+        assert direct["admission"]["calls"] == wave["admission"]["calls"] \
+            == 1
+        assert direct["executor_us_a_task"] > 0
+    assert [row["scale"] for row in rt["profile"]] == [1, 16]
+    for label in ("in_memory", "socket"):
+        w = rt["wall"][label]
+        assert [p["n"] for p in w["dispatch_task"]["points"]] == \
+            [p["n"] for p in w["zero_work"]["points"]]
+    trace = rt["wall"]["socket_trace"]
+    assert trace["counts"]["complete"] == trace["counts"]["dispatch"] == 48
+    assert trace["dispatch_to_complete"]["tasks"] == 48
+    assert trace["complete_to_next_dispatch"]["gaps"] > 0
+    assert json.loads(Path(trace["file"]).read_text())["traceEvents"]
+    assert rt["chaos"]["completed_outputs_equal"]
+    assert rt["chaos"]["jobs_retired"] == 2
+    assert rt["chaos"]["completed_tasks"] == 80
+    assert rt["chaos"]["payload_errors"] == []
+    assert rt["k1"]["equal_to_k1_alone"] and rt["k1"]["launches"] == 0
+    assert rt["leaked_threads"] == []
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_runtime_reports_a_missed_self_latency_gate(capsys, monkeypatch):
+    """A wave fit below r2 0.99 (here every fit reports 0.98) is the
+    driver's SystemExit; the phase records it as a failed gate, prints it
+    and goes on with the driver's --quick."""
+    from repro_torch.bench import self_latency
+
+    monkeypatch.setattr(self_latency, "N_SWEEP", (4096, 8192, 16384))
+    monkeypatch.setattr(self_latency, "J_SWEEP", (256, 512, 1024))
+    fit_points = self_latency.fit_points
+    monkeypatch.setattr(self_latency, "fit_points",
+                        lambda pts: {**fit_points(pts), "r2": 0.98,
+                                     "alpha_s": 1.0})
+    rec = chip_smoke.rt_self_latency(256, 1)
+    assert rec["gate"]["passed"] is False
+    assert rec["gate"]["wave_r2"] == 0.98
+    assert "r2=0.9800 < 0.99" in rec["gate"]["failure"]
+    assert rec["quick_trace"]["spans"] == 500
+    assert "FAILED the gate" in capsys.readouterr().out
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_runtime_chaos_fails_when_payloads_raise(monkeypatch, capsys):
+    """The chaos soak with GPU tasks fails, naming the cause, when one
+    payload raises once, though the task's retry then succeeds: only the
+    planted faults may cost a task."""
+    import threading
+
+    from repro_torch.rt import streams
+
+    first = threading.Lock()
+
+    def first_call_raises(fn, device, inputs=()):
+        if first.acquire(blocking=False):
+            raise RuntimeError("payload broken on purpose")
+        return fn()
+
+    monkeypatch.setattr(streams, "on_thread_stream", first_call_raises)
+    with pytest.raises(AssertionError):
+        chip_smoke.rt_chaos(chip_smoke.torch.device("cpu"), seed=0)
+    out = capsys.readouterr().out
+    assert "payloads raised" in out and "broken on purpose" in out
+
+
 def _experiment(name):
     return json.loads((ROOT / "experiments" / name).read_text())
 

@@ -156,3 +156,37 @@ def test_main_path_shapes_take_the_wgmma_body():
     torch.cuda.synchronize()
     assert expert_kernel.launches_by_body == {"wgmma": 5, "mma_sync": 2}
     assert expert_kernel.launches == 7
+
+
+@pytest.mark.gpu
+def test_wgmma_body_from_new_threads():
+    """K2 launched from threads whose first CUDA work takes a cached block:
+    bind_context makes the context its tensor maps need; the outputs equal
+    the main thread's bit for bit."""
+    import threading
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((8, 64, 512), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn((8, 512, 256), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    want = ops.expert_gemm(x, w)
+    ops.expert_gemm(x, w)                       # freed: a cached block
+    torch.cuda.synchronize()
+    outs, errors = {}, []
+
+    def run(i):
+        try:
+            outs[i] = ops.expert_gemm(x, w)
+            torch.cuda.current_stream().synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+        th.join()
+    assert not errors
+    assert all(torch.equal(outs[i], want) for i in range(8))

@@ -107,3 +107,38 @@ def test_launches_by_body(hd, body):
     after = dict(flash_kernel.launches_by_body)
     assert after.pop(body) == before.pop(body, 0) + 1
     assert after == before
+
+
+@pytest.mark.gpu
+def test_wgmma_body_from_new_threads():
+    """K1 launched from threads whose first CUDA work takes a cached block
+    (as a worker slot of repro_torch.rt does): the tensor-map encode needs
+    a current context, which bind_context makes; the outputs equal the
+    main thread's bit for bit."""
+    import threading
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+               for shape in ((1, 512, 24, 128), (1, 512, 8, 128),
+                             (1, 512, 8, 128)))
+    want = ops.flash_attention(q, k, v, causal=True)
+    ops.flash_attention(q, k, v, causal=True)    # freed: a cached block
+    torch.cuda.synchronize()
+    outs, errors = {}, []
+
+    def run(i):
+        try:
+            outs[i] = ops.flash_attention(q, k, v, causal=True)
+            torch.cuda.current_stream().synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+        th.join()
+    assert not errors
+    assert all(torch.equal(outs[i], want) for i in range(8))

@@ -1,10 +1,14 @@
 """Run the reference's own scheduler-side tests against the port.
 
 ``export(name, globals())`` reads ``tests/<name>.py``, rewrites its imports
-of ``repro.core``, ``repro.workloads`` and ``repro.obs`` to the port's
-packages (and of ``reference_policies`` to ``torch_reference_policies``),
-drops the tests named in ``LEFT_OUT``, refuses the file if any import of the
-reference package or of JAX is left, and executes the result as a module
+of ``repro.core``, ``repro.workloads``, ``repro.obs`` and ``repro.rt`` to the
+port's packages (and of ``reference_policies`` to
+``torch_reference_policies``), serves its imports of sibling reference test
+modules (``SIBLINGS``) from their port copies loaded the same way and its
+imports of the reference's ``benchmarks/`` modules (``BENCHMARKS``) from the
+port's drivers, drops the tests named in ``LEFT_OUT``, refuses the file if
+any import of the reference package, of JAX, of another reference test
+module or of ``benchmarks/`` is left, and executes the result as a module
 whose ``__file__`` is the reference file, so paths such as
 ``Path(__file__).parent / "fixtures"`` resolve as they do there. Its tests,
 fixtures and helpers are then copied into the caller's globals, where pytest
@@ -26,9 +30,25 @@ REWRITES = {
     "repro.core": "repro_torch.core",
     "repro.workloads": "repro_torch.workloads",
     "repro.obs": "repro_torch.obs",
+    "repro.rt": "repro_torch.rt",
     "reference_policies": "torch_reference_policies",
 }
+#: reference test modules that other reference test files import; served
+#: from their port copies (``torch_ref.<name>``, loaded on demand)
+SIBLINGS = ("test_faultplane", "test_wavepath")
+#: modules of the reference's benchmarks/ that reference test files import
+#: (with benchmarks/ put on sys.path), and the port's drivers that stand in
+BENCHMARKS = {"common": "repro_torch.bench.common"}
 FORBIDDEN = ("repro", "jax", "jaxlib")
+#: names a rewritten file may not import: the reference's test modules and
+#: the modules of its benchmarks/ (the latter import the reference)
+REFERENCE_TESTS = frozenset(
+    p.stem for p in TESTS.glob("test_*.py")
+    if not p.stem.startswith("test_torch_"))
+BENCHMARK_MODULES = frozenset(
+    {"benchmarks"} | {p.stem for p in (TESTS.parent / "benchmarks").glob(
+        "*.py")})
+PACKAGE = "torch_ref"
 
 #: tests of a reference file that are not run against the port, each with
 #: its reason
@@ -47,7 +67,17 @@ def _rewrite(module: str) -> str:
     for old, new in REWRITES.items():
         if module == old or module.startswith(old + "."):
             return new + module[len(old):]
+    if module in SIBLINGS:
+        return f"{PACKAGE}.{module}"
+    if module in BENCHMARKS:
+        return BENCHMARKS[module]
     return module
+
+
+def _refused(module: str) -> bool:
+    top = module.split(".")[0]
+    return (top in FORBIDDEN or top in REFERENCE_TESTS
+            or top in BENCHMARK_MODULES)
 
 
 def _imports(tree: ast.AST):
@@ -59,10 +89,11 @@ def _imports(tree: ast.AST):
             yield node, None
 
 
-def translate(name: str) -> tuple[ast.Module, Path]:
-    """The reference file ``tests/<name>.py`` as a module tree that imports
-    the port: left-out tests removed, imports rewritten and checked."""
-    path = TESTS / f"{name}.py"
+def translate(name: str, path: Path = None) -> tuple[ast.Module, Path]:
+    """The reference file ``tests/<name>.py`` (or ``path``) as a module tree
+    that imports the port: left-out tests removed, imports rewritten and
+    checked."""
+    path = TESTS / f"{name}.py" if path is None else path
     tree = ast.parse(path.read_text(), str(path))
     drop = LEFT_OUT.get(name, {})
     kept = [n for n in tree.body
@@ -83,20 +114,37 @@ def translate(name: str) -> tuple[ast.Module, Path]:
         else:
             node.module = _rewrite(node.module)
             module = node.module
-        if module.split(".")[0] in FORBIDDEN:
+        if _refused(module):
             left.append(f"line {node.lineno}: {module}")
     if left:
-        raise ImportError(f"{path} still imports the reference or JAX after "
-                          f"the rewrite: {left}; port the module or add the "
+        raise ImportError(f"{path} still imports the reference, JAX, a "
+                          "reference test module or benchmarks/ after the "
+                          f"rewrite: {left}; port the module or add the "
                           "test to LEFT_OUT with its reason")
     return tree, path
 
 
+def _package() -> None:
+    """``torch_ref``, the package the loaded copies live in."""
+    if PACKAGE not in sys.modules:
+        pkg = types.ModuleType(PACKAGE)
+        pkg.__path__ = []
+        sys.modules[PACKAGE] = pkg
+
+
 def load(name: str) -> types.ModuleType:
-    """Execute the translated ``tests/<name>.py`` as a module."""
+    """Execute the translated ``tests/<name>.py`` as a module, after the
+    sibling modules it imports."""
     tree, path = translate(name)
+    _package()
+    for node, alias in _imports(tree):
+        module = alias.name if alias is not None else node.module
+        sibling = module[len(PACKAGE) + 1:]
+        if module.startswith(PACKAGE + ".") and \
+                module not in sys.modules:
+            load(sibling)
     rewrite_asserts(tree, path.read_bytes(), str(path))
-    mod = types.ModuleType(f"torch_ref.{name}")
+    mod = types.ModuleType(f"{PACKAGE}.{name}")
     mod.__file__ = str(path)
     sys.modules[mod.__name__] = mod
     exec(compile(tree, str(path), "exec"), mod.__dict__)
