@@ -30,9 +30,11 @@ from repro_torch.core.executor import TorchDispatchExecutor
 from repro_torch.core.job import Task
 from repro_torch.core.latency_model import (ModelFit, fit_power_law,
                                             utilization_approx)
+from repro_torch.obs.spans import span
 
 D = 128
 SCALES = (1, 4, 16, 64)
+TASK_SPAN = "dispatch_latency.task"
 
 
 def _sync(dev: torch.device) -> None:
@@ -63,12 +65,12 @@ def launches_per_task(step, x, dev: torch.device, warm: int = 64,
     call lies inside the call's range. A profile can lose device events,
     never add them: one lost its first 16, another all of one call's. So
     each of ``sessions`` sessions first launches ``warm`` near-zero-work
-    kernels, then profiles the call in ``ranges`` ranges of its own, and
-    the count is the largest that any range saw."""
+    kernels, then profiles the call in ``ranges`` spans ``TASK_SPAN`` of
+    its own, and the count is the largest that any span saw."""
     if dev.type != "cuda":
         return None
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     best = 0
     for _ in range(sessions):
@@ -77,19 +79,18 @@ def launches_per_task(step, x, dev: torch.device, warm: int = 64,
             for _ in range(warm):
                 torch.neg(x)
             _sync(dev)
-            for i in range(ranges):
-                with record_function(f"dispatch_latency.task{i}"):
+            for _ in range(ranges):
+                with span(TASK_SPAN):
                     step(x)
                 _sync(dev)
         events = prof.events()
-        for i in range(ranges):
-            span = next(e.time_range for e in events
-                        if e.name == f"dispatch_latency.task{i}"
-                        and e.device_type == DeviceType.CPU)
+        tasks = [e.time_range for e in events if e.name == TASK_SPAN
+                 and e.device_type == DeviceType.CPU]
+        for task in tasks:
             launched = {e.id for e in events
                         if e.device_type == DeviceType.CPU
                         and e.name.startswith("cu")
-                        and span.start <= e.time_range.start <= span.end}
+                        and task.start <= e.time_range.start <= task.end}
             best = max(best, sum(
                 e.device_type != DeviceType.CPU and not e.is_user_annotation
                 and e.id in launched for e in events))

@@ -17,8 +17,8 @@ step with its specs and meta stand-ins for its inputs, for the dry run.
   Gradients come from ``torch.autograd.grad`` over the parameter leaves
   (nothing accumulates in ``.grad``) and are freed before the step returns.
   The model runs its plain paths: the kernels are forward-only. The three
-  parts of the step run inside the profiler ranges ``STEP_RANGES``
-  (forward with the loss, backward, AdamW), so a profiled step splits its
+  parts of the step run inside the spans ``STEP_RANGES`` (forward with the
+  loss, backward, AdamW; ``obs.spans``), so a profiled step splits its
   time by part.
 - ``build_prefill_step`` and ``build_decode_step``: the serving steps;
   ``steps_per_dispatch=k`` runs k greedy decode steps in one call, the
@@ -35,7 +35,6 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch import tree as tree_lib
@@ -43,6 +42,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import build_model
+from repro_torch.obs.spans import span
 from repro_torch.optim.adamw import AdamW, OptState, cosine_schedule
 
 
@@ -232,16 +232,16 @@ def build_train_step(cfg: ModelConfig, shape: Optional[ShapeConfig] = None,
         leaves = tree_lib.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        with record_function(STEP_RANGES[0]):
+        with span(STEP_RANGES[0]):
             loss, metrics = model.loss(params, batch)
-        with record_function(STEP_RANGES[1]), (
+        with span(STEP_RANGES[1]), (
                 shd.backward_views(mesh) if mesh is not None
                 else contextlib.nullcontext()):
             grads = torch.autograd.grad(loss, leaves)
         metrics = {"ce": metrics["ce"].detach(),
                    "aux": metrics["aux"].detach(), "loss": loss.detach()}
         del loss
-        with record_function(STEP_RANGES[2]):
+        with span(STEP_RANGES[2]):
             params, opt_state, om = opt.update(
                 tree_lib.unflatten(params, grads), state["opt"], params)
         del grads

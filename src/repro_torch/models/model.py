@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
 from repro_torch.models.layers import (
     embed_init, embed_tokens, lm_logits, softmax_cross_entropy)
+from repro_torch.obs.spans import span
 
 FRONTEND_TOKENS = {"vision": 256, "audio": 64, "none": 0}
 
@@ -72,7 +73,9 @@ class Model:
         x, caches, aux = transformer.stack_apply(
             params["stack"], x, positions, cfg, caches=caches,
             cache_index=cache_index, use_kernel=use_kernel, training=training)
-        return lm_logits(params["embed"], x, cfg), caches, aux
+        with span("model.head"):
+            logits = lm_logits(params["embed"], x, cfg)
+        return logits, caches, aux
 
     @torch.no_grad()
     def forward(self, params, tokens, frontend_embeds=None, caches=None,
@@ -105,23 +108,27 @@ class Model:
     def prefill(self, params, tokens, frontend_embeds=None, max_len=None,
                 use_kernel: bool = False):
         """Fill fresh caches for [0, S) (k/v up to ``max_len``, or the
-        recurrent states after the prompt); returns (last_logits, caches)."""
-        B, S = tokens.shape
-        caches = self.init_caches(B, max_len or S, tokens.device)
-        logits, caches = self.forward(params, tokens, frontend_embeds,
-                                      caches=caches, cache_index=0,
-                                      use_kernel=use_kernel)
-        return logits[:, -1], caches
+        recurrent states after the prompt); returns (last_logits, caches).
+        Runs in the span ``model.prefill``."""
+        with span("model.prefill"):
+            B, S = tokens.shape
+            caches = self.init_caches(B, max_len or S, tokens.device)
+            logits, caches = self.forward(params, tokens, frontend_embeds,
+                                          caches=caches, cache_index=0,
+                                          use_kernel=use_kernel)
+            return logits[:, -1], caches
 
     @torch.no_grad()
     def decode_step(self, params, token, caches, cache_index):
         """token: [B,1]; cache_index: an int or a [B] tensor (position to
         write). Returns (logits [B,padded_vocab], caches). Decode takes the
         plain paths: every kernel of the port is prefill-only, so the MoE
-        expert products of a decode step stay ``torch.einsum``."""
-        logits, caches = self.forward(params, token, caches=caches,
-                                      cache_index=cache_index)
-        return logits[:, -1], caches
+        expert products of a decode step stay ``torch.einsum``. Runs in the
+        span ``model.decode``."""
+        with span("model.decode"):
+            logits, caches = self.forward(params, token, caches=caches,
+                                          cache_index=cache_index)
+            return logits[:, -1], caches
 
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
         """{name: (shape, dtype)} of a train step's batch at ``shape``."""

@@ -9,7 +9,8 @@ experts' weights whatever the routing. An arctic-style parallel
 dense-residual FFN is supported. With ``use_kernel`` the three expert
 products go through ``kernels.ops.expert_gemm`` (the hand-written grouped
 GEMM on CUDA tensors, its plain version on CPU tensors); the function is
-the same.
+the same. ``moe_apply`` runs in four spans (``obs.spans``): ``moe.route``,
+``moe.dispatch``, ``moe.experts`` and ``moe.combine``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain, split_evenly
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal, ffn_apply, ffn_init
+from repro_torch.obs.spans import span
 
 # Tokens per dispatch group: bounds the [G, E, C] one-hot cost; the group
 # size adapts to the expert width, as in the reference.
@@ -126,37 +128,40 @@ def moe_apply(params, x, cfg: ModelConfig,
                          f"{g_size}")
     xg = split_evenly(x, 0, tokens // g_size).reshape(
         tokens // g_size, g_size, d)
-    probs, gate_vals, gate_idx, pos, keep, capacity = route(
-        params["router"], xg, cfg)
+    with span("moe.route"):
+        probs, gate_vals, gate_idx, pos, keep, capacity = route(
+            params["router"], xg, cfg)
+        # load-balancing aux loss (Switch eq. 4)
+        me = probs.mean(dim=1)                                   # [n,E]
+        ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=1)
+        aux = (me * ce).sum(dim=-1).mean() * E * m.aux_loss_weight
 
-    # load-balancing aux loss (Switch eq. 4)
-    me = probs.mean(dim=1)                                       # [n,E]
-    ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=1)
-    aux = (me * ce).sum(dim=-1).mean() * E * m.aux_loss_weight
-
-    # combine[n,G,E,C]; a dropped slot's capacity one-hot is all zero. The
-    # gates take x's dtype before the product, as in the reference.
-    cap_oh = F.one_hot(torch.where(keep, pos, capacity),
-                       capacity + 1)[..., :capacity].to(x.dtype)
-    combine = torch.einsum("ngk,ngke,ngkc->ngec", gate_vals.to(x.dtype),
-                           F.one_hot(gate_idx, E).to(x.dtype), cap_oh)
-    dispatch = (combine > 0).to(x.dtype)
-    combine = constrain(combine, "batch", None, "experts", None)
-    dispatch = constrain(dispatch, "batch", None, "experts", None)
+    with span("moe.dispatch"):
+        # combine[n,G,E,C]; a dropped slot's capacity one-hot is all zero.
+        # The gates take x's dtype before the product, as in the reference.
+        cap_oh = F.one_hot(torch.where(keep, pos, capacity),
+                           capacity + 1)[..., :capacity].to(x.dtype)
+        combine = torch.einsum("ngk,ngke,ngkc->ngec", gate_vals.to(x.dtype),
+                               F.one_hot(gate_idx, E).to(x.dtype), cap_oh)
+        dispatch = (combine > 0).to(x.dtype)
+        combine = constrain(combine, "batch", None, "experts", None)
+        dispatch = constrain(dispatch, "batch", None, "experts", None)
+        ex_in = torch.einsum("ngd,ngec->necd", xg, dispatch)
+        ex_in = constrain(ex_in, "batch", "experts", None, "embed")
 
     # expert computation: every expert over its whole capacity
-    ex_in = torch.einsum("ngd,ngec->necd", xg, dispatch)
-    ex_in = constrain(ex_in, "batch", "experts", None, "embed")
-    w = params["experts"]
-    product = _expert_gemm if use_kernel else _expert_einsum
-    up = product(ex_in, w["w_up"])
-    gate = product(ex_in, w["w_gate"]) if "w_gate" in w else None
-    h = constrain(_activate(gate, up, cfg.act),
-                  "batch", "experts", None, "expert_ffn")
-    ex_out = constrain(product(h, w["w_down"]),
-                       "batch", "experts", None, "embed")
-    out = torch.einsum("necd,ngec->ngd", ex_out, combine).reshape(B, S, d)
-    out = constrain(out, "batch", "seq", "embed")
+    with span("moe.experts"):
+        w = params["experts"]
+        product = _expert_gemm if use_kernel else _expert_einsum
+        up = product(ex_in, w["w_up"])
+        gate = product(ex_in, w["w_gate"]) if "w_gate" in w else None
+        h = constrain(_activate(gate, up, cfg.act),
+                      "batch", "experts", None, "expert_ffn")
+        ex_out = constrain(product(h, w["w_down"]),
+                           "batch", "experts", None, "embed")
+    with span("moe.combine"):
+        out = torch.einsum("necd,ngec->ngd", ex_out, combine).reshape(B, S, d)
+        out = constrain(out, "batch", "seq", "embed")
     if m.dense_residual:
         out = out + ffn_apply(params["dense"], x, cfg.act)
     return out, aux

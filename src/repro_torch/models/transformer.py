@@ -37,9 +37,11 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm
 from repro_torch.models.layers import ffn_apply, ffn_init, rmsnorm, rmsnorm_init
+from repro_torch.obs.spans import span
 
 _MIXER_INIT = {"attn": attn.attn_init, "ssm": ssm_lib.ssm_init,
                "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
+_MIXER_SPAN = {kind: f"model.{kind}" for kind in _MIXER_INIT}
 
 
 def _pos_name(p: int) -> str:
@@ -98,35 +100,45 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
                 use_kernel: bool = False):
     """Apply one block (its cache, if any, is written in place). Returns
     (x, aux): aux is the MoE load-balancing loss, a float32 scalar tensor,
-    or the number 0.0 without MoE (no kernel on the serving paths)."""
+    or the number 0.0 without MoE (no kernel on the serving paths). The
+    mixer runs in the span ``model.<kind>`` (with a recurrent layer's
+    state copy), the FFN in ``model.ffn``, the MoE block in ``model.moe``;
+    the norms and residual adds in none."""
     kind = cfg.layer_kind(layer_pos)
     aux = 0.0
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
-    if kind == "attn":
-        out = attn.attn_apply(params["mixer"], h, positions, cfg, cache=cache,
-                              cache_index=cache_index, use_kernel=use_kernel)
-    else:
-        if kind == "ssm":
-            out, state = ssm_lib.ssm_apply(params["mixer"], h, cfg,
-                                           state=cache, use_kernel=use_kernel)
-        elif kind == "mlstm":
-            out, state = xlstm.mlstm_apply(params["mixer"], h, cfg,
-                                           state=cache)
+    with span(_MIXER_SPAN[kind]):
+        if kind == "attn":
+            out = attn.attn_apply(params["mixer"], h, positions, cfg,
+                                  cache=cache, cache_index=cache_index,
+                                  use_kernel=use_kernel)
         else:
-            out, state = xlstm.slstm_apply(params["mixer"], h, cfg,
-                                           state=cache, use_kernel=use_kernel)
-        if cache is not None:
-            for key, value in state.items():
-                cache[key].copy_(value)
+            if kind == "ssm":
+                out, state = ssm_lib.ssm_apply(params["mixer"], h, cfg,
+                                               state=cache,
+                                               use_kernel=use_kernel)
+            elif kind == "mlstm":
+                out, state = xlstm.mlstm_apply(params["mixer"], h, cfg,
+                                               state=cache)
+            else:
+                out, state = xlstm.slstm_apply(params["mixer"], h, cfg,
+                                               state=cache,
+                                               use_kernel=use_kernel)
+            if cache is not None:
+                for key, value in state.items():
+                    cache[key].copy_(value)
     x = x + out
     if "moe" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
-                                     use_kernel=use_kernel)
+        with span("model.moe"):
+            out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
+                                         use_kernel=use_kernel)
         x = x + out
     elif "ffn" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
-        x = x + ffn_apply(params["ffn"], h, cfg.act)
+        with span("model.ffn"):
+            out = ffn_apply(params["ffn"], h, cfg.act)
+        x = x + out
     return x, aux
 
 

@@ -1,9 +1,10 @@
 """Observability plane of the port: flight recorder, metrics registry,
-self-profiler, live dashboard.
+self-profiler, live dashboard, and the spans of the model and serving
+paths.
 
-Four layers, all stdlib-only, all zero-cost when not attached (the engine's
-observation hooks are None-checked; an unobserved run pays one comparison
-per event and nothing else):
+Four layers observe the scheduler, all stdlib-only, all zero-cost when not
+attached (the engine's observation hooks are None-checked; an unobserved
+run pays one comparison per event and nothing else):
 
 * :class:`FlightRecorder` (``trace.py``) — bounded ring-buffer structured
   event trace of the full task lifecycle, bit-identical between the wave
@@ -18,7 +19,12 @@ per event and nothing else):
 * :class:`Dashboard` (``dashboard.py``) — terminal renderer (and static
   HTML report) streaming registry series during long runs.
 
-Copies of the reference's ``repro/obs`` with imports rewritten.
+These four are copies of the reference's ``repro/obs`` with imports
+rewritten. ``spans.py`` is the port's own: ``span(name)``, a
+``torch.profiler.record_function`` range while the profiler records and a
+null context otherwise, the one range mechanism of the serving engine,
+the model's blocks, the MoE layer and the train step (names in
+``spans.SPANS``).
 """
 from repro_torch.obs.dashboard import Dashboard
 from repro_torch.obs.profile import SelfProfiler

@@ -19,6 +19,11 @@ their plain versions on CPU tensors. Decode steps take the plain paths.
 ``use_kernel=False`` runs the model's plain paths, as the reference engine
 does.
 
+Each step runs in the spans ``engine.step``, ``engine.admit``,
+``engine.prefill``, ``engine.scatter``, ``engine.decode`` and
+``engine.sample`` (``obs.spans``), which a profiled run records and an
+unprofiled one skips.
+
 Idle lanes decode token 0 at their last position, as in the reference
 engine; their results are dropped. In MoE layers those tokens take part in
 routing and compete for expert capacity, so both engines drop the same
@@ -40,6 +45,7 @@ from repro_torch.core.job import Job, Task
 from repro_torch.core.resources import ResourceManager
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
+from repro_torch.obs.spans import span
 
 _req_ids = itertools.count(1)
 
@@ -53,7 +59,6 @@ class ServeRequest:
     # filled by the engine
     output: List[int] = field(default_factory=list)
     submit_time: float = 0.0
-    first_token_time: float = 0.0
     done_time: float = 0.0
 
     @property
@@ -92,73 +97,82 @@ class ServingEngine:
         self.pending.append(req)
 
     def _admit(self) -> None:
-        while self.pending:
-            free = [i for i in range(self.lanes) if not self.active_mask[i]]
-            if not free:
-                return
-            lane = free[0]
-            req = self.pending.popleft()
-            task = Job.array(1, name=f"req{req.request_id}").tasks[0]
-            self.rm.allocate(task, lane)
-            self._lane_jobs[lane] = task
-            # prefill into this lane
-            prompt = torch.as_tensor(req.prompt, dtype=torch.long,
-                                     device=self.device)[None]
-            last, new_caches = self.model.prefill(
-                self.params, prompt, max_len=self.max_len,
-                use_kernel=self.use_kernel)
-            self._scatter_lane(lane, new_caches)
-            req.output.append(int(last[0].argmax()))
-            req.first_token_time = time.time()
-            if req.done:
-                # generation stops at the step that produces EOS: when the
-                # prefill token is already terminal (EOS, or
-                # max_new_tokens == 1), activating the lane would spend a
-                # decode dispatch and emit one token after EOS
-                req.done_time = time.time()
-                self.rm.release(self._lane_jobs.pop(lane))
-                continue
-            self.positions[lane] = len(req.prompt)
-            self.lane_req[lane] = req
-            self.active_mask[lane] = True
+        with span("engine.admit"):
+            while self.pending:
+                free = [i for i in range(self.lanes)
+                        if not self.active_mask[i]]
+                if not free:
+                    return
+                lane = free[0]
+                req = self.pending.popleft()
+                task = Job.array(1, name=f"req{req.request_id}").tasks[0]
+                self.rm.allocate(task, lane)
+                self._lane_jobs[lane] = task
+                # prefill into this lane
+                with span("engine.prefill"):
+                    prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                             device=self.device)[None]
+                    last, new_caches = self.model.prefill(
+                        self.params, prompt, max_len=self.max_len,
+                        use_kernel=self.use_kernel)
+                self._scatter_lane(lane, new_caches)
+                with span("engine.sample"):
+                    req.output.append(int(last[0].argmax()))
+                    if req.done:
+                        # generation stops at the step that produces EOS:
+                        # when the prefill token is already terminal (EOS,
+                        # or max_new_tokens == 1), activating the lane
+                        # would spend a decode dispatch and emit one token
+                        # after EOS
+                        req.done_time = time.time()
+                        self.rm.release(self._lane_jobs.pop(lane))
+                        continue
+                    self.positions[lane] = len(req.prompt)
+                    self.lane_req[lane] = req
+                    self.active_mask[lane] = True
 
     def _scatter_lane(self, lane: int, src_caches) -> None:
         """Copy a one-lane cache tree into lane ``lane`` of the engine cache:
         every leaf, k/v and recurrent states alike (lanes are axis 1)."""
-        for name, tree in self.caches.items():
-            for key, dst in tree.items():
-                dst[:, lane] = src_caches[name][key][:, 0]
+        with span("engine.scatter"):
+            for name, tree in self.caches.items():
+                for key, dst in tree.items():
+                    dst[:, lane] = src_caches[name][key][:, 0]
 
     # ------------------------------------------------------------- step
     def step(self) -> int:
         """Admit, then one batched decode step; returns #active lanes."""
-        self._admit()
-        active = np.nonzero(self.active_mask)[0]
-        if len(active) == 0:
-            return 0
-        tokens = np.zeros((self.lanes, 1), np.int64)
-        for i in range(self.lanes):
-            r = self.lane_req[i]
-            if r is not None:
-                tokens[i, 0] = r.output[-1]
-        logits, self.caches = self.model.decode_step(
-            self.params, torch.as_tensor(tokens, device=self.device),
-            self.caches, torch.as_tensor(self.positions, device=self.device))
-        next_np = logits.argmax(dim=-1).cpu().numpy()
-        self.steps += 1
-        self.decode_tokens += len(active)
-        for lane in active:
-            req = self.lane_req[lane]
-            req.output.append(int(next_np[lane]))
-            self.positions[lane] += 1
-            if req.done or self.positions[lane] >= self.max_len - 1:
-                req.done_time = time.time()
-                self.active_mask[lane] = False
-                self.lane_req[lane] = None
-                task = self._lane_jobs.pop(lane, None)
-                if task is not None:
-                    self.rm.release(task)
-        return len(active)
+        with span("engine.step"):
+            self._admit()
+            active = np.nonzero(self.active_mask)[0]
+            if len(active) == 0:
+                return 0
+            with span("engine.decode"):
+                tokens = np.zeros((self.lanes, 1), np.int64)
+                for i in range(self.lanes):
+                    r = self.lane_req[i]
+                    if r is not None:
+                        tokens[i, 0] = r.output[-1]
+                logits, self.caches = self.model.decode_step(
+                    self.params, torch.as_tensor(tokens, device=self.device),
+                    self.caches,
+                    torch.as_tensor(self.positions, device=self.device))
+            with span("engine.sample"):
+                next_np = logits.argmax(dim=-1).cpu().numpy()
+                self.steps += 1
+                self.decode_tokens += len(active)
+                for lane in active:
+                    req = self.lane_req[lane]
+                    req.output.append(int(next_np[lane]))
+                    self.positions[lane] += 1
+                    if req.done or self.positions[lane] >= self.max_len - 1:
+                        req.done_time = time.time()
+                        self.active_mask[lane] = False
+                        self.lane_req[lane] = None
+                        task = self._lane_jobs.pop(lane, None)
+                        if task is not None:
+                            self.rm.release(task)
+            return len(active)
 
     def run(self, requests: Sequence[ServeRequest]) -> Dict:
         """Serve requests to completion; returns summary stats."""
