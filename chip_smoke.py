@@ -7,7 +7,8 @@ Phases, each printing one JSON line (and failing the run on any error):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build the kernels from src/repro_torch/kernels/csrc, one nvcc each,
      all started together: flash attention (K1), the sLSTM scan (K4), the
-     selective scan (K3) and the grouped expert GEMM (K2); count each
+     selective scan (K3), the grouped expert GEMM (K2) and decode
+     attention (no TPU kernel: added for the decode step); count each
      kernel function's HGMMA (wgmma) and UTMALDG (TMA load) instructions
      in the built code, and fail unless K1's and K2's wgmma bodies have
      both; record ptxas's registers and spills for each kernel function
@@ -36,9 +37,17 @@ Phases, each printing one JSON line (and failing the run on any error):
      it at
      Jamba's prefill and decode shapes and Granite's beside its plain
      version, torch.bmm and the card's bound;
+  5b. hold the decode-attention kernel against its plain version over head
+     dims 16..256, GQA/MQA, G up to 40, window and softcap, in float32 and
+     bf16, with NaN in the cache past each lane's position and outside its
+     window, and time it at phi4-serve-longdoc's decode shapes (32 lanes,
+     L 8,256, positions log-uniform over 1,024-8,192) beside its byte
+     bound, its plain version and torch's scaled_dot_product_attention,
+     at each bf16 split size;
   6. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
      the continuous-batching engine, check that every prefill went through
-     K1's wgmma body, and break a prefill and a decode step down;
+     K1's wgmma body and every decode step through the decode kernel's mma
+     body once a layer, and break a prefill and a decode step down;
   7. token check: Phi-4-mini at full width and 2 layers in float32, the
      engine's tokens equal single-stream greedy decoding;
   8. the same serving run and breakdown for full-width xLSTM 1.3B (every
@@ -156,7 +165,8 @@ Phases, each printing one JSON line (and failing the run on any error):
 Phases 15-18 and 18b launch no kernel of the port, and fail if one does;
 18c launches K1 in its K1 job only.
 Every serving phase also checks that each launch took its main-path body
-(``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3.
+(``launches_by_body``): wgmma for K1 and K2, regs for K4, ring for K3, mma
+for the decode kernel (fma in serve_batched's float32).
 Each phase runs under a deadline: a phase that hangs ends the run with an
 error. Then a line with the count of timings taken again after a host
 stall, a line with the kernel table, and last the device line. Exits
@@ -777,18 +787,136 @@ def phase_gemm_check(expert_kernel, expert_gemm_ref, body_for, seed: int):
     return timed
 
 
+def decode_bound(index, Hq, Hkv, hd, dtype):
+    """Least time (ms) of decode attention over lanes at positions
+    ``index``: bytes (each lane's k and v up to its position, q and the
+    output once) over HBM rate vs 4 Hq hd FLOP a position over the dtype's
+    peak. Returns (ms, what bounds it, bytes, FLOPs)."""
+    esize = torch.finfo(dtype).bits // 8
+    positions = int(sum(int(i) + 1 for i in index))
+    nbytes = esize * (2 * positions * Hkv * hd + 2 * len(index) * Hq * hd)
+    flops = 4 * Hq * hd * positions
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+DECODE_LIBRARY = ("torch scaled_dot_product_attention, default backend, "
+                  "one query a lane over the whole cache with a boolean "
+                  "mask of each lane's positions (enable_gqa)")
+
+
+def phase_decode_check(decode_kernel, decode_attention_ref, seed: int):
+    """The decode kernel vs its plain version on the card (every head
+    dim, both dtypes, GQA/MQA, window, softcap, a poisoned cache past each
+    lane's position); then timed at phi4-serve-longdoc's shapes (32 lanes,
+    L 8,256, 24 heads over 8, hd 128, bf16, positions log-uniform over
+    1,024-8,192 as its prompts) beside its byte bound, the plain version
+    and SDPA, with each bf16 split size."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import MMA_SPLITS
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    # (label, B, L, Hq, Hkv, hd, window, softcap)
+    cases = [("phi4_smoke_hd16", 3, 100, 6, 2, 16, 0, 0.0),
+             ("gemma_smoke_mqa_hd32", 2, 130, 4, 1, 32, 0, 0.0),
+             ("gemma_mqa_hd256", 2, 300, 8, 1, 256, 0, 0.0),
+             ("granite_hd64", 4, 700, 16, 8, 64, 0, 0.0),
+             ("window64", 3, 300, 4, 2, 64, 64, 0.0),
+             ("softcap20", 2, 200, 6, 2, 128, 0, 20.0),
+             ("window_softcap", 3, 1200, 6, 2, 128, 100, 30.0),
+             ("g20_two_row_tiles", 2, 300, 40, 2, 64, 0, 0.0),
+             ("phi4_L8256", 4, 8256, 24, 8, 128, 0, 0.0)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, B, L, Hq, Hkv, hd, window, softcap in cases:
+            q = 2 * torch.randn((B, 1, Hq, hd), generator=gen, device="cuda")
+            ck, cv = (torch.randn((B, L, Hkv, hd), generator=gen,
+                                  device="cuda") for _ in range(2))
+            q, ck, cv = q.to(dtype), ck.to(dtype), cv.to(dtype)
+            idx = rng.integers(0, L, B)
+            idx[:2] = [0, L - 1]
+            index = torch.as_tensor(idx, device="cuda")
+            # NaN wherever a lane may not look: a read of it shows
+            pos = torch.arange(L, device="cuda")[None, :]
+            outside = pos > index[:, None]
+            if window:
+                outside |= pos <= index[:, None] - window
+            pk, pv = ck.clone(), cv.clone()
+            pk[outside] = float("nan")
+            pv[outside] = float("nan")
+            kw = dict(window=window, softcap=softcap)
+            out = decode_kernel(q, pk, pv, index, **kw)
+            torch.cuda.synchronize()
+            exp = decode_attention_ref(q, ck, cv, index, **kw)
+            err = (out.float() - exp.float()).abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and torch.allclose(
+                out.float(), exp.float(), atol=TOL[dtype], rtol=TOL[dtype])
+            rec = {"phase": "decode_check", "case": label,
+                   "dtype": str(dtype).split(".")[1], "B": B, "L": L,
+                   "Hq": Hq, "Hkv": Hkv, "hd": hd, "window": window,
+                   "softcap": softcap, "max_abs_err": err,
+                   "tol": TOL[dtype], "ok": ok}
+            emit(rec)
+            del pk, pv
+            if not ok:
+                raise AssertionError(f"decode kernel disagrees with its "
+                                     f"plain version: {rec}")
+
+    # the serving cell's shapes
+    B, L, Hq, Hkv, hd, dtype = 32, 8256, 24, 8, 128, torch.bfloat16
+    q = 2 * torch.randn((B, 1, Hq, hd), generator=gen, device="cuda")
+    ck, cv = (torch.randn((B, L, Hkv, hd), generator=gen, device="cuda")
+              for _ in range(2))
+    q, ck, cv = q.to(dtype), ck.to(dtype), cv.to(dtype)
+    idx = np.exp(rng.uniform(np.log(1024), np.log(8192), B)).astype(np.int64)
+    index = torch.as_tensor(idx, device="cuda")
+    out = decode_kernel(q, ck, cv, index)
+    exp = decode_attention_ref(q, ck, cv, index)
+    rec = {"phase": "decode_check", "case": "phi4_serve_longdoc",
+           "dtype": "bfloat16", "B": B, "L": L, "Hq": Hq, "Hkv": Hkv,
+           "hd": hd, "positions_mean": float(idx.mean() + 1),
+           "max_abs_err": (out.float() - exp.float()).abs().max().item()}
+    rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["flops"] = \
+        decode_bound(idx, Hq, Hkv, hd, dtype)
+    rec["kernel_ms"] = cuda_ms(lambda: decode_kernel(q, ck, cv, index))
+    rec["split_ms"] = {split: cuda_ms(lambda: decode_kernel(
+        q, ck, cv, index, split=split)) for split in MMA_SPLITS}
+    rec["kernel_gb_s"] = rec["bytes"] / rec["kernel_ms"] / 1e6
+    rec["roofline_pct"] = 100.0 * rec["bound_ms"] / rec["kernel_ms"]
+    rec["plain_ms"] = cuda_ms(
+        lambda: decode_attention_ref(q, ck, cv, index), iters=5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ck, cv))
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= index[:, None])[:, None, None, :]
+    rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5)
+    rec["library_note"] = DECODE_LIBRARY
+    rec["ok"] = bool(torch.isfinite(out).all()) and torch.allclose(
+        out.float(), exp.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"decode kernel at the serving shapes: {rec}")
+    del q, ck, cv, qt, kt, vt, out, exp
+    torch.cuda.empty_cache()
+    return rec
+
+
 # the body every launch of a kernel takes on the serving paths
 SERVE_BODY = {"flash_attention": "wgmma", "expert_gemm": "wgmma",
-              "slstm_scan": "regs", "ssm_scan": "ring"}
+              "slstm_scan": "regs", "ssm_scan": "ring",
+              "decode_attention": "mma"}
 
 
 def phase_serve(cfg, seed: int, lens_range, per_request: dict,
                 plain_iters: int = 3):
     """Serve 16 requests of the full-width model ``cfg`` on 8 lanes; every
-    prefill must launch each kernel ``per_request[name]`` times (and any
-    other kernel never), each always in its main-path body
-    (``SERVE_BODY``). Then the breakdown of one prefill and one decode
-    step. Returns the launch counts and the counts by body."""
+    prefill must launch each kernel ``per_request[name]`` times, every
+    decode step the decode kernel once an attention layer (and any other
+    kernel never), each always in its main-path body (``SERVE_BODY``).
+    Then the breakdown of one prefill and one decode step. Returns the
+    launch counts and the counts by body."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
@@ -837,6 +965,8 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     by_body = {name: dict(k.launches_by_body)
                for name, k in ops.KERNELS.items()}
     expected = {name: per_request.get(name, 0) * n_req for name in counts}
+    expected["decode_attention"] = stats["decode_steps"] * sum(
+        cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     want_body = {name: {body: expected[name]} if expected[name] else {}
                  for name, body in SERVE_BODY.items()}
     toks = [t for r in reqs for t in r.output]
@@ -880,8 +1010,9 @@ def _host_ms(fn, iters: int) -> float:
 
 def phase_breakdown(model, params, engine, rng, plain_iters: int):
     """Where a request's time goes: one 512-token prefill (with the kernels
-    and with the model's plain paths) and one 8-lane decode step, on the
-    host clock; the device's busy share of a decode step from
+    and with the model's plain paths) and one 8-lane decode step (through
+    the decode kernel, as the engine runs it, and on the plain paths), on
+    the host clock; the device's busy share of a kernel decode step from
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -896,13 +1027,14 @@ def phase_breakdown(model, params, engine, rng, plain_iters: int):
     tokens = torch.zeros((engine.lanes, 1), dtype=torch.long, device="cuda")
     positions = torch.full((engine.lanes,), 600, device="cuda")
 
-    def decode():
-        logits, _ = model.decode_step(params, tokens, engine.caches,
-                                      positions)
+    def decode(use_kernel=True):
+        m = dataclasses.replace(model, decode_kernel=use_kernel)
+        logits, _ = m.decode_step(params, tokens, engine.caches, positions)
         return logits.argmax(dim=-1).cpu()
 
     rec["decode_lanes"] = engine.lanes
     rec["decode_step_ms"] = _host_ms(decode, 5)
+    rec["decode_step_ms_plain"] = _host_ms(lambda: decode(False), 5)
     steps = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2702,7 +2834,8 @@ def phase_runtime(device="cuda", seed: int = 0, sl_procs: int = None,
 def phase_serve_batched(device="cuda", full: bool = True):
     """The port's examples/serve_batched.py on Gemma 2B (published widths
     with ``full``) in float32: 1 lane and 8 lanes must give identical
-    outputs. Every prefill attention goes through K1 on the card."""
+    outputs. Every prefill attention goes through K1 on the card, every
+    decode step's through the decode kernel."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.examples import serve_batched
 
@@ -2715,7 +2848,11 @@ def phase_serve_batched(device="cuda", full: bool = True):
     counts, by_body = _launches()
     attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     cuda = torch.device(device).type == "cuda"
-    expected = 2 * serve_batched.N_REQ * attn if cuda else 0
+    expected = {"flash_attention": 2 * serve_batched.N_REQ * attn,
+                "decode_attention": attn * (res["serial"]["decode_steps"]
+                                            + res["batched"]["decode_steps"])}
+    if not cuda:
+        expected = {name: 0 for name in expected}
     keys = ("decode_steps", "decode_tokens", "tokens_per_dispatch",
             "throughput_tok_s", "wall_s")
     emit({"phase": "serve_batched", "arch": cfg.name, "dtype": "float32",
@@ -2724,12 +2861,10 @@ def phase_serve_batched(device="cuda", full: bool = True):
           "batched": {k: res["batched"][k] for k in keys},
           "dispatch_reduction": res["dispatch_reduction"],
           "outputs_identical": True, "launches": counts,
-          "launches_expected": {"flash_attention": expected},
-          "launches_by_body": by_body})
-    if counts["flash_attention"] != expected or any(
-            n for name, n in counts.items() if name != "flash_attention"):
+          "launches_expected": expected, "launches_by_body": by_body})
+    if counts != {name: expected.get(name, 0) for name in counts}:
         raise AssertionError(f"serve_batched launches {counts}, want "
-                             f"{expected} of flash_attention")
+                             f"{expected}")
     return counts, by_body
 
 
@@ -3101,8 +3236,9 @@ def main() -> int:
     # deterministic cuBLAS for the fault phase: read when cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import (expert_gemm, flash_attention, ops,
-                                     slstm_scan, ssm_scan)
+    from repro_torch.kernels import (decode_attention, expert_gemm,
+                                     flash_attention, ops, slstm_scan,
+                                     ssm_scan)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3123,6 +3259,10 @@ def main() -> int:
         gemm_timed = phase_gemm_check(
             expert_gemm.expert_kernel, expert_gemm.expert_gemm_ref,
             expert_gemm._body_for, args.seed)
+    with deadline(300, "decode_check"):
+        decode_timed = phase_decode_check(
+            decode_attention.decode_kernel,
+            decode_attention.decode_attention_ref, args.seed)
 
     def two_layers(arch):
         return dataclasses.replace(get_config(arch), n_layers=2,
@@ -3302,7 +3442,34 @@ def main() -> int:
             "E", "M", "K", "N", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")}
             for label in ("jamba_down", "jamba_decode_up", "granite_up",
-                          "granite_down")}}]})
+                          "granite_down")}}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": str(decode_attention.SOURCE.relative_to(ROOT)),
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the reference's decode attention "
+                         "is plain jnp; added for the port's decode step",
+        "launches": phi4["decode_attention"],
+        "launches_granite": granite["decode_attention"],
+        "launches_jamba": jamba["decode_attention"],
+        "launches_serve_batched": batched["decode_attention"],
+        "launches_serving_replay": replay["decode_attention"],
+        "launches_by_body": {"phi4": phi4_body["decode_attention"],
+                             "granite": granite_body["decode_attention"],
+                             "jamba": jamba_body["decode_attention"],
+                             "serve_batched": batched_body[
+                                 "decode_attention"],
+                             "serving_replay": replay_body[
+                                 "decode_attention"]},
+        "max_abs_err": decode_timed["max_abs_err"],
+        "ms": decode_timed["kernel_ms"],
+        "split_ms": decode_timed["split_ms"],
+        "plain_ms": decode_timed["plain_ms"],
+        "bound_ms": decode_timed["bound_ms"],
+        "bound_by": decode_timed["bound_by"],
+        "library_ms": decode_timed["library_ms"],
+        "library_note": DECODE_LIBRARY,
+        "shape": "B=32 L=8256 Hq=24 Hkv=8 hd=128 bf16, positions "
+                 "log-uniform 1,024-8,192 (phi4-serve-longdoc's decode)"}]})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(OUT_LINES) + "\n")

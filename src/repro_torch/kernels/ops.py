@@ -26,13 +26,16 @@ import contextlib
 
 import torch
 
+from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                  decode_kernel)
 from repro_torch.kernels.expert_gemm import expert_gemm_ref, expert_kernel
 from repro_torch.kernels.flash_attention import flash_attention_ref, flash_kernel
 from repro_torch.kernels.slstm_scan import slstm_kernel, slstm_scan_ref
 from repro_torch.kernels.ssm_scan import ssm_kernel, ssm_scan_ref
 
 KERNELS = {"flash_attention": flash_kernel, "slstm_scan": slstm_kernel,
-           "ssm_scan": ssm_kernel, "expert_gemm": expert_kernel}
+           "ssm_scan": ssm_kernel, "expert_gemm": expert_kernel,
+           "decode_attention": decode_kernel}
 _plain = {"on": False}
 
 
@@ -106,6 +109,23 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                             softcap=softcap)
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap)
+
+
+def decode_attention(q, ck, cv, cache_index, window: int = 0,
+                     softcap: float = 0.0):
+    """q: [B,1,Hq,hd]; ck, cv: [B,L,Hkv,hd], a layer's cache (the kernel
+    reads it in place); cache_index: an int or a [B] tensor, the last
+    position each lane attends -> [B,1,Hq,hd] in q's dtype."""
+    _forward_only("decode_attention", q, ck, cv)
+    out = _on_shards("decode_attention", lambda *t: decode_attention(
+        *t, window=window, softcap=softcap), q, ck, cv, cache_index)
+    if out is not None:
+        return out
+    if q.is_cuda and not _plain["on"]:
+        return decode_kernel(q, ck, cv, cache_index, window=window,
+                             softcap=softcap)
+    return decode_attention_ref(q, ck, cv, cache_index, window=window,
+                                softcap=softcap)
 
 
 def slstm_scan(pre, r_all, c0, n0, m0, h0):

@@ -4,7 +4,10 @@ Prefill uses plain PyTorch attention (``full_attention``, or
 ``chunked_attention`` above ``FULL_ATTN_MAX``) or, with ``use_kernel``, the
 flash-attention kernel through ``kernels.ops`` (on CUDA tensors the
 hand-written kernel, on CPU tensors its plain version). Decode attends one
-query per lane against the whole cache in plain PyTorch, as the reference.
+query per lane against the whole cache in plain PyTorch, as the reference,
+or, with ``use_kernel``, through ``kernels.ops.decode_attention``: on CUDA
+tensors the decode kernel, which reads each lane's cache in place up to its
+position; on CPU tensors the same plain version.
 
 Unlike the reference, cache writes are in place: ``attn_apply`` writes the
 new keys and values into the cache tensors it is given.
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels.decode_attention import decode_attention_ref
 from repro_torch.models import loops
 from repro_torch.models.layers import NEG_INF, _normal, apply_rope
 
@@ -182,7 +186,9 @@ def attn_apply(params, x, positions, cfg: ModelConfig,
 
     With a cache: S == 1 is a decode step writing at ``cache_index`` (an int
     or a [B] tensor of per-lane positions); otherwise prefill writes [0, S).
-    The write goes into ``cache`` in place.
+    The write goes into ``cache`` in place. ``use_kernel`` sends prefill
+    attention (S > 1) through ``ops.flash_attention`` and a decode step's
+    through ``ops.decode_attention``.
     """
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
@@ -198,7 +204,14 @@ def attn_apply(params, x, positions, cfg: ModelConfig,
             ck[:, i:i + S] = k.to(ck.dtype)
             cv[:, i:i + S] = v.to(cv.dtype)
         if S == 1:
-            out = decode_attention(q, ck, cv, cache_index, cfg)
+            if use_kernel:
+                from repro_torch.kernels import ops
+
+                out = ops.decode_attention(
+                    q, ck, cv, cache_index, window=cfg.sliding_window,
+                    softcap=cfg.attn_logit_softcap)
+            else:
+                out = decode_attention(q, ck, cv, cache_index, cfg)
             return constrain(_out_proj(out, params["wo"]),
                              "batch", "seq", "embed")
         # prefill attends over the cache, so K and V pass the cache dtype
@@ -219,28 +232,14 @@ def decode_attention(q, ck, cv, cache_index, cfg: ModelConfig):
     """Single-token attention vs. the full cache.
 
     q: [B,1,Hq,hd], ck/cv: [B,L,Hkv,hd]; positions after ``cache_index``
-    (an int or a [B] tensor) are masked.
+    (an int or a [B] tensor) are masked. The decode kernel's plain version
+    (``kernels/decode_attention.py::decode_attention_ref``), on k and v as
+    ``_kv_for`` gives them.
     """
     ck, cv = _kv_for(q, ck, cv)
-    B, _, Hq, hd = q.shape
-    L, Hkv = ck.shape[1], ck.shape[2]
-    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
-    logits = torch.einsum("bkgh,btkh->bkgt", qg, ck).float() * hd ** -0.5
-    logits = _softcap(logits, cfg.attn_logit_softcap)
-    if torch.is_tensor(cache_index) and cache_index.dim() == 1:
-        idx = cache_index[:, None, None, None]
-    else:
-        idx = cache_index
-    pos = torch.arange(L, device=q.device)[None, None, None, :]
-    valid = pos <= idx
-    if cfg.sliding_window > 0:
-        valid &= pos > idx - cfg.sliding_window
-    logits = logits.masked_fill(~valid, NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    probs = (p / p.sum(dim=-1, keepdim=True)).to(q.dtype)
-    out = torch.einsum("bkgt,btkh->bkgh", probs, cv)
-    return out.reshape(B, 1, Hq, hd)
+    return decode_attention_ref(q, ck, cv, cache_index,
+                                window=cfg.sliding_window,
+                                softcap=cfg.attn_logit_softcap)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

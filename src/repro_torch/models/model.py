@@ -35,7 +35,15 @@ class _MetaGenerator(torch.Generator):
 
 @dataclass(frozen=True)
 class Model:
+    """The model of ``cfg``. ``decode_kernel`` sends each attention layer's
+    decode attention in ``decode_step`` through ``ops.decode_attention``
+    (the decode kernel on CUDA tensors, its plain version on CPU tensors).
+    It is the model's and not a ``decode_step`` argument so that the
+    engine's call keeps the signature (params, token, caches,
+    cache_index)."""
+
     cfg: ModelConfig
+    decode_kernel: bool = False
 
     def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random parameters from ``seed`` on ``device`` (not the
@@ -82,8 +90,8 @@ class Model:
                 cache_index=None, use_kernel: bool = False):
         """Returns (logits [B,S,padded_vocab], caches). Caches (k/v and
         recurrent states) are written in place. ``use_kernel`` sends
-        prefill attention, the sLSTM scan, the selective scan and the MoE
-        expert products through ``kernels.ops``."""
+        attention (a decode step's too), the sLSTM scan, the selective scan
+        and prefill's MoE expert products through ``kernels.ops``."""
         logits, caches, _ = self._apply(params, tokens, frontend_embeds,
                                         caches, cache_index, use_kernel)
         return logits, caches
@@ -121,13 +129,15 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, token, caches, cache_index):
         """token: [B,1]; cache_index: an int or a [B] tensor (position to
-        write). Returns (logits [B,padded_vocab], caches). Decode takes the
-        plain paths: every kernel of the port is prefill-only, so the MoE
-        expert products of a decode step stay ``torch.einsum``. Runs in the
-        span ``model.decode``."""
+        write). Returns (logits [B,padded_vocab], caches). With
+        ``decode_kernel`` each attention layer's decode attention goes
+        through ``ops.decode_attention``; everything else takes the plain
+        paths, so the MoE expert products of a decode step stay
+        ``torch.einsum``. Runs in the span ``model.decode``."""
         with span("model.decode"):
             logits, caches = self.forward(params, token, caches=caches,
-                                          cache_index=cache_index)
+                                          cache_index=cache_index,
+                                          use_kernel=self.decode_kernel)
             return logits[:, -1], caches
 
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
@@ -146,5 +156,5 @@ class Model:
         return specs
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, decode_kernel: bool = False) -> Model:
+    return Model(cfg, decode_kernel)

@@ -130,9 +130,12 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
     x = x + out
     if "moe" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)
+        # K2 takes prefill's expert products; a decode step's (one token a
+        # lane, with a cache) stay einsums
+        decode = cache is not None and x.shape[1] == 1
         with span("model.moe"):
             out, aux = moe_lib.moe_apply(params["moe"], h, cfg,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel and not decode)
         x = x + out
     elif "ffn" in params:
         h = rmsnorm(params["ffn_norm"], x, cfg.norm_eps)

@@ -14,10 +14,12 @@ Mamba and xLSTM layers. With ``use_kernel`` (the default) prefill attention
 goes through ``kernels.ops.flash_attention``, the sLSTM recurrence through
 ``kernels.ops.slstm_scan``, the Mamba recurrence through
 ``kernels.ops.ssm_scan`` and the MoE expert products through
-``kernels.ops.expert_gemm``: the hand-written kernels on CUDA tensors,
-their plain versions on CPU tensors. Decode steps take the plain paths.
-``use_kernel=False`` runs the model's plain paths, as the reference engine
-does.
+``kernels.ops.expert_gemm``, and each decode step's attention through
+``kernels.ops.decode_attention``, which reads every lane's cache in place up
+to the lane's position: the hand-written kernels on CUDA tensors, their
+plain versions on CPU tensors. The rest of a decode step takes the plain
+paths. ``use_kernel=False`` runs the model's plain paths, as the reference
+engine does.
 
 Each step runs in the spans ``engine.step``, ``engine.admit``,
 ``engine.prefill``, ``engine.scatter``, ``engine.decode`` and
@@ -72,7 +74,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, lanes: int = 8,
                  max_len: int = 512, use_kernel: bool = True):
         self.cfg = cfg
-        self.model = build_model(cfg)
+        self.model = build_model(cfg, decode_kernel=use_kernel)
         self.params = params
         self.device = params["embed"]["tok_embed"].device
         self.lanes = lanes

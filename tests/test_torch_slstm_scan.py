@@ -144,4 +144,5 @@ def test_plain_versions_switch_restores_dispatch():
             raise KeyError
     assert not ops._plain["on"]
     assert ops.launch_counts().keys() == {"flash_attention", "slstm_scan",
-                                          "ssm_scan", "expert_gemm"}
+                                          "ssm_scan", "expert_gemm",
+                                          "decode_attention"}
