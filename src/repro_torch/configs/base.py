@@ -31,6 +31,13 @@ class MoEConfig:
     router_jitter: float = 0.0
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
+    # DeepSeek-V3 routing; the defaults are the softmax router above
+    scoring: str = "softmax"     # softmax | sigmoid
+    selection_bias: bool = False  # a float32 [E] bias on the scores that
+    #                               changes which experts are chosen only
+    routed_scale: float = 1.0    # the renormalised gates scaled by this
+    dropless: bool = False       # every (token, choice) computed: no capacity
+    first_dense: int = 0         # leading layers with a dense FFN (d_ff)
 
     @property
     def enabled(self) -> bool:
@@ -57,7 +64,29 @@ class XLSTMConfig:
     proj_factor_slstm: float = 1.3333
 
 
-_SUB_CONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "xlstm": XLSTMConfig}
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3) without a query LoRA:
+    queries projected whole, keys and values through a normed latent of
+    ``kv_lora_rank`` that the cache holds beside one shared RoPE key of
+    ``qk_rope_head_dim``. 0 (the default): not used."""
+
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+_SUB_CONFIGS = {"moe": MoEConfig, "ssm": SSMConfig, "xlstm": XLSTMConfig,
+                "mla": MLAConfig}
 
 
 @dataclass(frozen=True)
@@ -86,6 +115,8 @@ class ModelConfig:
     moe: MoEConfig = field(default_factory=MoEConfig)
     ssm: SSMConfig = field(default_factory=SSMConfig)
     xlstm: XLSTMConfig = field(default_factory=XLSTMConfig)
+    # latent attention in place of GQA in every attention layer
+    mla: MLAConfig = field(default_factory=MLAConfig)
     # modality frontend stub: precomputed embeddings of this dim replace the
     # first tokens
     frontend: str = "none"      # none | vision | audio
@@ -95,6 +126,9 @@ class ModelConfig:
     # (possibly heterogeneous) layers. 0 -> auto from family.
     scan_period: int = 0
     remat: str = "block"        # training only; inference ignores it
+    # serving only: each decode step on CUDA tensors replayed as CUDA
+    # graphs (models/decode_graph.py)
+    decode_graph: bool = False
 
     def __post_init__(self):
         # dataclasses.asdict() flattens the sub-configs to dicts; accept them
@@ -102,6 +136,10 @@ class ModelConfig:
             value = getattr(self, name)
             if isinstance(value, dict):
                 object.__setattr__(self, name, cls(**value))
+        if self.moe.first_dense and \
+                self.resolved_scan_period != self.n_layers:
+            raise ValueError("leading dense layers (moe.first_dense) need "
+                             "one group: scan_period = n_layers")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -134,19 +172,21 @@ class ModelConfig:
         return self.n_layers // p
 
     def layer_kind(self, layer_idx: int) -> str:
-        """Kind of layer at absolute index: attn | ssm | slstm | mlstm."""
+        """Kind of layer at absolute index: attn | mla | ssm | slstm |
+        mlstm."""
         if self.family == "ssm":
             x = self.xlstm
             return "slstm" if layer_idx % x.slstm_every == x.slstm_offset else "mlstm"
         if self.family == "hybrid":
             if layer_idx % self.attn_every == self.attn_offset:
-                return "attn"
+                return "mla" if self.mla.enabled else "attn"
             return "ssm"
-        return "attn"
+        return "mla" if self.mla.enabled else "attn"
 
     def layer_is_moe(self, layer_idx: int) -> bool:
         m = self.moe
-        return m.enabled and (layer_idx % m.every == m.offset)
+        return (m.enabled and layer_idx >= m.first_dense
+                and layer_idx % m.every == m.offset)
 
     def param_count(self) -> Dict[str, float]:
         """Analytic parameter counts (total and active-per-token), the
@@ -159,6 +199,12 @@ class ModelConfig:
             kind = self.layer_kind(li)
             if kind == "attn":
                 blk = d * hd * (nq + 2 * nkv) + nq * hd * d  # qkv + out
+            elif kind == "mla":
+                a = self.mla
+                r, rope = a.kv_lora_rank, a.qk_rope_head_dim
+                blk = (d * nq * a.qk_head_dim + d * (r + rope)
+                       + r * nq * (a.qk_nope_head_dim + a.v_head_dim)
+                       + nq * a.v_head_dim * d)
             elif kind == "ssm":
                 s = self.ssm
                 d_in = s.expand * d
@@ -175,7 +221,7 @@ class ModelConfig:
                 blk = 4 * d * d + 2 * d * d_in  # recurrent gates + ffn
             total += blk
             active += blk
-            if kind in ("attn", "ssm") and self.d_ff:
+            if kind in ("attn", "mla", "ssm") and self.d_ff:
                 nmat = 3 if self.act in ("swiglu", "geglu") else 2
                 if self.layer_is_moe(li):
                     m = self.moe

@@ -46,17 +46,20 @@ def _body_for(q, k, v) -> str:
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0):
-    """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype.
+                        softcap: float = 0.0, scale: float = None):
+    """q, k: [B,S,Hq,hd], [B,T,Hkv,hd]; v: [B,T,Hkv,hv] -> [B,S,Hq,hv] in
+    q's dtype (the kernel takes hv = hd only).
 
     Causal (query i sees keys j <= i), optionally sliding-window (also
     j > i - window) and softcapped; GQA: kv head = q head // (Hq/Hkv).
+    The scores are scaled by ``scale``, by default hd^-0.5.
     """
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
+    scale = hd ** -0.5 if scale is None else scale
     qg = q.reshape(B, S, Hkv, G, hd).float()
-    logits = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * hd ** -0.5
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
     qpos = torch.arange(S, device=q.device)[:, None]
@@ -69,7 +72,7 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
-    return out.reshape(B, S, Hq, hd).to(q.dtype)
+    return out.reshape(B, S, Hq, v.shape[3]).to(q.dtype)
 
 
 class FlashAttentionKernel(KernelLibrary):
@@ -87,8 +90,9 @@ class FlashAttentionKernel(KernelLibrary):
         fn.restype = ctypes.c_int
 
     def __call__(self, q, k, v, causal: bool = True, window: int = 0,
-                 softcap: float = 0.0):
-        """Launch on CUDA tensors q [B,S,Hq,hd], k/v [B,T,Hkv,hd]."""
+                 softcap: float = 0.0, scale: float = None):
+        """Launch on CUDA tensors q [B,S,Hq,hd], k/v [B,T,Hkv,hd]; the
+        scores scaled by ``scale`` (by default hd^-0.5)."""
         _check(q, k, v)
         lib = self.build()
         B, S, Hq, hd = q.shape
@@ -103,7 +107,8 @@ class FlashAttentionKernel(KernelLibrary):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], B, S, T, Hq, Hkv, hd, *strides,
-            hd ** -0.5, int(causal), int(window), float(softcap),
+            hd ** -0.5 if scale is None else float(scale), int(causal),
+            int(window), float(softcap),
             _BODY_CODES[body], stream)
         if err != 0:
             raise RuntimeError(f"flash_attention_fwd ({body} body) launch "

@@ -97,18 +97,18 @@ def _on_shards(name: str, fn, *tensors):
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype."""
+                    softcap: float = 0.0, scale: float = None):
+    """q: [B,S,Hq,hd]; k,v: [B,T,Hkv,hd] -> [B,S,Hq,hd] in q's dtype; the
+    scores scaled by ``scale``, by default hd^-0.5."""
     _forward_only("flash_attention", q, k, v)
-    out = _on_shards("flash_attention", lambda *t: flash_attention(
-        *t, causal=causal, window=window, softcap=softcap), q, k, v)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    out = _on_shards("flash_attention",
+                     lambda *t: flash_attention(*t, **kw), q, k, v)
     if out is not None:
         return out
     if q.is_cuda and not _plain["on"]:
-        return flash_kernel(q, k, v, causal=causal, window=window,
-                            softcap=softcap)
-    return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+        return flash_kernel(q, k, v, **kw)
+    return flash_attention_ref(q, k, v, **kw)
 
 
 def decode_attention(q, ck, cv, cache_index, window: int = 0,

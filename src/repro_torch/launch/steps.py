@@ -68,8 +68,15 @@ _CACHE_RULES = (
 )
 
 
+# the port's own cache leaves, which the reference lacks: latent attention's
+# ckv [groups, B, L, kv_lora_rank] and kpe [groups, B, L, qk_rope_head_dim]
+_PORT_CACHE_RULES = (
+    (r"/(ckv|kpe)$", 4, (None, "batch", "seq_kv", None)),
+)
+
+
 def cache_logical_axes(path: str, ndim: int):
-    for pat, nd, axes in _CACHE_RULES:
+    for pat, nd, axes in _CACHE_RULES + _PORT_CACHE_RULES:
         if nd == ndim and re.search(pat, path):
             return axes
     return (None,) * ndim

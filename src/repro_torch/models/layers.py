@@ -58,10 +58,11 @@ def apply_rope(x, positions, cfg: ModelConfig):
     """x: [..., seq, heads, head_dim]; positions broadcastable to [..., seq].
 
     Rotates interleaved pairs (x[..., 0::2], x[..., 1::2]) of the leading
-    ``rope_fraction`` of head_dim, as the reference does (not rotate-half).
+    ``rope_fraction`` of head_dim (x's last axis), as the reference does
+    (not rotate-half).
     """
-    inv, rot = rope_freqs(cfg.resolved_head_dim, cfg.rope_fraction,
-                          cfg.rope_theta, x.device)
+    inv, rot = rope_freqs(x.shape[-1], cfg.rope_fraction, cfg.rope_theta,
+                          x.device)
     if rot == 0:
         return x
     ang = positions[..., :, None].float() * inv        # [..., seq, rot/2]

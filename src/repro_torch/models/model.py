@@ -8,14 +8,14 @@ on the target device or converted from the reference with
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict
 
 import torch
 
 from repro_torch import dtype_of, resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import decode_graph, transformer
 from repro_torch.models.layers import (
     embed_init, embed_tokens, lm_logits, softmax_cross_entropy)
 from repro_torch.obs.spans import span
@@ -40,10 +40,13 @@ class Model:
     (the decode kernel on CUDA tensors, its plain version on CPU tensors).
     It is the model's and not a ``decode_step`` argument so that the
     engine's call keeps the signature (params, token, caches,
-    cache_index)."""
+    cache_index). ``graphs`` holds the decode step captured as CUDA graphs
+    where ``cfg.decode_graph`` asks for them (``decode_graph``)."""
 
     cfg: ModelConfig
     decode_kernel: bool = False
+    graphs: Dict[str, Any] = field(default_factory=dict, init=False,
+                                   compare=False, hash=False, repr=False)
 
     def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random parameters from ``seed`` on ``device`` (not the
@@ -101,7 +104,14 @@ class Model:
         "frontend_embeds", optional "loss_mask"}. Returns (loss, {"ce",
         "aux"}), differentiable: grad mode is on, there are no caches, the
         groups are recomputed in the backward pass as ``cfg.remat`` asks,
-        and every op is a plain path (the kernels are forward-only)."""
+        and every op is a plain path (the kernels are forward-only).
+        Refuses a dropless MoE (DeepSeek-V3 routing), which the port
+        serves only: its balancing, the selection bias's update outside
+        the gradient, is not ported."""
+        if self.cfg.moe.dropless:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training a dropless MoE is not ported "
+                "(no load balancing: the selection bias's update)")
         with torch.enable_grad():
             logits, _, aux = self._apply(
                 params, batch["tokens"], batch.get("frontend_embeds"),
@@ -133,8 +143,14 @@ class Model:
         ``decode_kernel`` each attention layer's decode attention goes
         through ``ops.decode_attention``; everything else takes the plain
         paths, so the MoE expert products of a decode step stay
-        ``torch.einsum``. Runs in the span ``model.decode``."""
+        ``torch.einsum``. With ``cfg.decode_graph``, on CUDA tensors with
+        per-lane positions, the step is replayed as CUDA graphs
+        (``decode_graph``). Runs in the span ``model.decode``."""
         with span("model.decode"):
+            if (self.cfg.decode_graph and token.is_cuda
+                    and torch.is_tensor(cache_index)):
+                return decode_graph.decode(self, params, token, caches,
+                                           cache_index), caches
             logits, caches = self.forward(params, token, caches=caches,
                                           cache_index=cache_index,
                                           use_kernel=self.decode_kernel)

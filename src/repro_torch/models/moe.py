@@ -1,4 +1,5 @@
-"""Mixture-of-Experts block: top-k router + capacity-based one-hot dispatch.
+"""Mixture-of-Experts block: top-k router + capacity-based one-hot dispatch,
+or dropless dispatch by index.
 
 The reference's Switch/GShard-style dispatch, reproduced exactly: tokens
 are processed in groups; each group builds a [G, E, C] dispatch tensor, so
@@ -6,11 +7,31 @@ which (token, k) slots are dropped, and the order in which tokens take the
 capacity of an expert, are the reference's. Every expert computes its
 whole capacity (the reference's einsum form), so an MoE layer reads all
 experts' weights whatever the routing. An arctic-style parallel
-dense-residual FFN is supported. With ``use_kernel`` the three expert
-products go through ``kernels.ops.expert_gemm`` (the hand-written grouped
-GEMM on CUDA tensors, its plain version on CPU tensors); the function is
-the same. ``moe_apply`` runs in four spans (``obs.spans``): ``moe.route``,
+dense-residual FFN is supported; DeepSeek-V3's shared experts are that
+branch. With ``use_kernel`` the three expert products go through
+``kernels.ops.expert_gemm`` (the hand-written grouped GEMM on CUDA
+tensors, its plain version on CPU tensors); the function is the same.
+``moe_apply`` runs in four spans (``obs.spans``): ``moe.route``,
 ``moe.dispatch``, ``moe.experts`` and ``moe.combine``.
+
+DeepSeek-V3 routing (``MoEConfig.scoring="sigmoid"``, ``selection_bias``,
+``routed_scale``), for x the normed input of one token:
+
+    s = sigmoid(x·W_r)                      float32 [E]
+    chosen = top k of s + b                 ties to the lower index
+    g = s[chosen] / Σ s[chosen] · scale     from the unbiased scores
+    y = Σ_k g_k·Expert_k(x) + Shared(x)
+
+``MoEConfig.dropless`` computes every (token, choice) pair: all tokens of
+the call form one group, each pair's row is scattered by index into its
+expert's slots ``[E, C, d]``, and each token's k outputs are gathered back
+and summed in float32. C is the call's largest expert load (one read of
+the loads from the device). A call of one position a row (a decode step)
+reads nothing and scatters nothing: every expert takes every token in the
+slot of the token's index, C being the call's token count, which bounds
+every load (a token picks an expert at most once). No aux loss is computed
+on that path (DeepSeek-V3 balances through the selection bias, outside
+the gradient).
 """
 from __future__ import annotations
 
@@ -28,6 +49,9 @@ from repro_torch.obs.spans import span
 # Tokens per dispatch group: bounds the [G, E, C] one-hot cost; the group
 # size adapts to the expert width, as in the reference.
 MAX_GROUP_SIZE = 2048
+# the selection bias's init scale (DeepSeek-V3 learns it from zero; a
+# non-zero draw makes biased and unbiased selection differ)
+BIAS_SCALE = 0.1
 
 
 def group_size_for(cfg) -> int:
@@ -48,6 +72,8 @@ def moe_init(gen, cfg: ModelConfig, dtype, lead=()):
     }
     if cfg.act in ("swiglu", "geglu"):
         p["experts"]["w_gate"] = _normal(lead + (E, d, dff), s_in, dtype, gen)
+    if m.selection_bias:
+        p["router_bias"] = _normal(lead + (E,), BIAS_SCALE, torch.float32, gen)
     if m.dense_residual:
         p["dense"] = ffn_init(gen, d, m.d_dense_residual or cfg.d_ff, cfg.act,
                               dtype, lead)
@@ -69,7 +95,28 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(router, xg, cfg: ModelConfig):
+def choose(router, x, cfg: ModelConfig, bias=None):
+    """The router's choice for tokens x [..., d]: (scores [..., E] float32,
+    gates [..., k] float32, experts [..., k]). Softmax or sigmoid scores;
+    the top k of the scores, or of scores + ``bias`` where given (the
+    gates still the unbiased scores); renormalised, then scaled by
+    ``routed_scale``."""
+    m = cfg.moe
+    logits = x.float() @ router
+    scores = (torch.sigmoid(logits) if m.scoring == "sigmoid"
+              else torch.softmax(logits, dim=-1))
+    if bias is None:
+        gates, idx = top_k(scores, m.top_k)
+    else:
+        _, idx = top_k(scores + bias, m.top_k)
+        gates = scores.gather(-1, idx)
+    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+    if m.routed_scale != 1.0:
+        gates = gates * m.routed_scale
+    return scores, gates, idx
+
+
+def route(router, xg, cfg: ModelConfig, bias=None):
     """Routing of token groups xg [n, G, d].
 
     Returns (probs [n,G,E] float32, gate_vals [n,G,k] renormalised with the
@@ -80,10 +127,7 @@ def route(router, xg, cfg: ModelConfig):
     m = cfg.moe
     n, g_size, _ = xg.shape
     E, k = m.n_experts, m.top_k
-    probs = torch.softmax(xg.float() @ router, dim=-1)
-    gate_vals, gate_idx = top_k(probs, k)
-    gate_vals = gate_vals / torch.clamp_min(
-        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    probs, gate_vals, gate_idx = choose(router, xg, cfg, bias)
     # GShard-style minimum capacity: keeps tiny decode groups lossless
     capacity = int(max(4, k, round(g_size * k * m.capacity_factor / E)))
     capacity = min(capacity, g_size * k)
@@ -119,6 +163,8 @@ def moe_apply(params, x, cfg: ModelConfig,
     ``use_kernel`` sends the up, gate and down products through
     ``ops.expert_gemm``; otherwise they are the reference's einsums."""
     m = cfg.moe
+    if m.dropless:
+        return _dropless_apply(params, x, cfg, use_kernel), 0.0
     B, S, d = x.shape
     E = m.n_experts
     tokens = B * S
@@ -130,7 +176,7 @@ def moe_apply(params, x, cfg: ModelConfig,
         tokens // g_size, g_size, d)
     with span("moe.route"):
         probs, gate_vals, gate_idx, pos, keep, capacity = route(
-            params["router"], xg, cfg)
+            params["router"], xg, cfg, params.get("router_bias"))
         # load-balancing aux loss (Switch eq. 4)
         me = probs.mean(dim=1)                                   # [n,E]
         ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=1)
@@ -165,3 +211,46 @@ def moe_apply(params, x, cfg: ModelConfig,
     if m.dense_residual:
         out = out + ffn_apply(params["dense"], x, cfg.act)
     return out, aux
+
+
+def _dropless_apply(params, x, cfg: ModelConfig, use_kernel: bool):
+    """x [B, S, d] -> out [B, S, d] with every (token, choice) pair
+    computed (the module docstring's dropless dispatch)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.n_experts, m.top_k
+    xt = x.reshape(B * S, d)
+    with span("moe.route"):
+        _, gates, idx = choose(params["router"], xt, cfg,
+                               params.get("router_bias"))
+    with span("moe.dispatch"):
+        e = idx.reshape(-1)
+        if S == 1:
+            # a decode step: every expert takes every token, each in the
+            # slot of its own index (capacity = the call's tokens)
+            slot = torch.arange(B, device=x.device).repeat_interleave(k)
+            ex_in = xt.expand(E, B, d)[None]
+        else:
+            # each pair's slot in its expert: its rank among the expert's
+            # pairs in (token, choice) order
+            order = torch.argsort(e, stable=True)
+            load = torch.bincount(e, minlength=E)
+            start = torch.cumsum(load, 0) - load
+            slot = torch.empty_like(e)
+            slot[order] = (torch.arange(e.numel(), device=e.device)
+                           - start[e[order]])
+            ex_in = x.new_zeros((1, E, int(load.max()), d))
+            ex_in[0, e, slot] = xt.repeat_interleave(k, dim=0)
+    with span("moe.experts"):
+        w = params["experts"]
+        product = _expert_gemm if use_kernel else _expert_einsum
+        h = _activate(product(ex_in, w["w_gate"]) if "w_gate" in w else None,
+                      product(ex_in, w["w_up"]), cfg.act)
+        ex_out = product(h, w["w_down"])
+    with span("moe.combine"):
+        y = ex_out[0, e, slot].reshape(B * S, k, d)
+        out = (y.float() * gates[..., None]).sum(dim=1).to(x.dtype)
+        out = out.reshape(B, S, d)
+    if m.dense_residual:
+        out = out + ffn_apply(params["dense"], x, cfg.act)
+    return out

@@ -4,7 +4,8 @@ The parameter and cache layout is the reference's: ``{posNN: tree}`` with a
 leading ``n_groups`` axis on every leaf, so converted weights and caches
 compare one for one. Where the reference scans over groups, the port loops
 in Python. Every mixer kind is ported: attention, Mamba (``ssm``), mLSTM
-and sLSTM; attention and Mamba layers take an MoE block or a dense FFN.
+and sLSTM; the port adds latent attention (``mla``, which the reference
+lacks). Attention and Mamba layers take an MoE block or a dense FFN.
 The MoE aux loss is summed over the layers of a group, then over groups,
 as the reference sums it.
 
@@ -16,7 +17,8 @@ the rest, ``"full"`` keeps only the group's input, ``"none"`` keeps
 everything. Serving ignores ``remat``.
 
 Caches are written in place: attention writes its new keys and values into
-the k/v tensors it is given, and the recurrent layers copy their new state
+the k/v tensors it is given (latent attention its latent and RoPE key into
+``ckv``/``kpe``), and the recurrent layers copy their new state
 into the state tensors of the cache (``{posNN: {conv, h}}`` for Mamba,
 ``{posNN: {C, n, m, conv}}`` for mLSTM, ``{posNN: {c, n, m, h}}`` for
 sLSTM, each with the leading ``n_groups`` axis).
@@ -33,14 +35,17 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import loops
+from repro_torch.models import mla
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm
 from repro_torch.models.layers import ffn_apply, ffn_init, rmsnorm, rmsnorm_init
 from repro_torch.obs.spans import span
 
-_MIXER_INIT = {"attn": attn.attn_init, "ssm": ssm_lib.ssm_init,
-               "mlstm": xlstm.mlstm_init, "slstm": xlstm.slstm_init}
+_MIXER_INIT = {"attn": attn.attn_init, "mla": mla.mla_init,
+               "ssm": ssm_lib.ssm_init, "mlstm": xlstm.mlstm_init,
+               "slstm": xlstm.slstm_init}
+_ATTENTION = {"attn": attn.attn_apply, "mla": mla.mla_apply}
 _MIXER_SPAN = {kind: f"model.{kind}" for kind in _MIXER_INIT}
 
 
@@ -82,7 +87,7 @@ def stack_init(gen, cfg: ModelConfig, dtype) -> Dict[str, Any]:
         kind = cfg.layer_kind(p)
         block = {"mixer_norm": rmsnorm_init(cfg.d_model, (G,), dev),
                  "mixer": _MIXER_INIT[kind](gen, cfg, dtype, (G,))}
-        if kind in ("attn", "ssm"):
+        if kind in ("attn", "mla", "ssm"):
             if cfg.layer_is_moe(p):
                 block["ffn_norm"] = rmsnorm_init(cfg.d_model, (G,), dev)
                 block["moe"] = moe_lib.moe_init(gen, cfg, dtype, (G,))
@@ -108,10 +113,10 @@ def block_apply(params, x, positions, cfg: ModelConfig, layer_pos: int,
     aux = 0.0
     h = rmsnorm(params["mixer_norm"], x, cfg.norm_eps)
     with span(_MIXER_SPAN[kind]):
-        if kind == "attn":
-            out = attn.attn_apply(params["mixer"], h, positions, cfg,
-                                  cache=cache, cache_index=cache_index,
-                                  use_kernel=use_kernel)
+        if kind in _ATTENTION:
+            out = _ATTENTION[kind](params["mixer"], h, positions, cfg,
+                                   cache=cache, cache_index=cache_index,
+                                   use_kernel=use_kernel)
         else:
             if kind == "ssm":
                 out, state = ssm_lib.ssm_apply(params["mixer"], h, cfg,
@@ -199,15 +204,16 @@ def stack_apply(params, x, positions, cfg: ModelConfig,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device="cpu") -> Dict[str, Any]:
     """Stacked caches {posNN: tree with a leading n_groups axis}: attention
-    {k, v: [n_groups, B, L, Hkv, hd]}, or a Mamba or xLSTM layer's
+    {k, v: [n_groups, B, L, Hkv, hd]}, latent attention {ckv: [n_groups,
+    B, L, kv_lora_rank], kpe: [n_groups, B, L, qk_rope_head_dim]}, or a Mamba or xLSTM layer's
     recurrent state (which does not grow with ``max_len``)."""
     out = {}
     lead = (cfg.n_groups,)
     for p in range(cfg.resolved_scan_period):
         kind = cfg.layer_kind(p)
-        if kind == "attn":
-            cache = attn.init_cache(cfg, batch, max_len, dtype, device,
-                                    lead=lead)
+        if kind in ("attn", "mla"):
+            init = attn.init_cache if kind == "attn" else mla.init_cache
+            cache = init(cfg, batch, max_len, dtype, device, lead=lead)
         elif kind == "ssm":
             cache = ssm_lib.init_ssm_state(cfg, batch, dtype, device,
                                            lead=lead)

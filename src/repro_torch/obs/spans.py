@@ -32,7 +32,11 @@ SPANS = (
     # models/model.py::Model: the model's serving calls, and its head
     "model.prefill", "model.decode", "model.head",
     # models/transformer.py::block_apply: a layer's mixer, by layer kind
-    "model.attn", "model.ssm", "model.mlstm", "model.slstm",
+    "model.attn", "model.mla", "model.ssm", "model.mlstm", "model.slstm",
+    # models/mla.py::mla_apply: the projections of q and the latent, its
+    # norm, RoPE and the cache write; the attention (prefill: the
+    # expansion and K1; decode: the absorption products over the latent)
+    "mla.latent", "mla.attend",
     # ... and its dense FFN or MoE block
     "model.ffn", "model.moe",
     # models/moe.py::moe_apply: router and aux loss; capacity one-hots,
@@ -43,11 +47,18 @@ SPANS = (
 )
 
 _OFF = contextlib.nullcontext()
+# the decode step being captured as graphs (models/decode_graph.py), if
+# any: a span it splits at is an edge of its graphs
+_capture = None
 
 
 def span(name: str):
     """A ``record_function`` range named ``name`` while the profiler
-    records; a shared null context otherwise."""
+    records; a shared null context otherwise. While a decode step is
+    captured, a span it splits at (``decode_graph.SPLIT``) ends one graph
+    and begins the next at each of its edges."""
+    if _capture is not None and name in _capture.split:
+        return _capture.region(name)
     if not _profiler_enabled():
         return _OFF
     return record_function(name)

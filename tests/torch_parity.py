@@ -22,6 +22,27 @@ def port_config(jax_cfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(jax_cfg))
 
 
+def reference_view(port_cfg, ref_cfg) -> dict:
+    """``dataclasses.asdict`` of a port config with the port's own fields
+    left out (latent attention, DeepSeek-V3 routing: fields the reference
+    lacks), each of which must hold its default, today's behaviour; the
+    rest compares with the reference's ``asdict`` as it stands."""
+    default = dataclasses.asdict(type(port_cfg)())
+
+    def keep(port, ref, dflt):
+        out = {}
+        for key, value in port.items():
+            if key not in ref:
+                assert value == dflt[key], (key, value)
+            elif isinstance(value, dict) and isinstance(ref[key], dict):
+                out[key] = keep(value, ref[key], dflt[key])
+            else:
+                out[key] = value
+        return out
+    return keep(dataclasses.asdict(port_cfg), dataclasses.asdict(ref_cfg),
+                default)
+
+
 def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
