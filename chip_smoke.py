@@ -47,7 +47,10 @@ Phases, each printing one JSON line (and failing the run on any error):
   6. serve full-width Phi-4-mini 3.8B (seeded random bf16 weights) through
      the continuous-batching engine, check that every prefill went through
      K1's wgmma body and every decode step through the decode kernel's mma
-     body once a layer, and break a prefill and a decode step down;
+     body once a layer, the steps replayed as CUDA graphs after one
+     capture (the launches a replay adds are read from the graphs' nodes;
+     one replay under the profiler must launch the decode kernel's body
+     once a layer too), and break a prefill and a decode step down;
   7. token check: Phi-4-mini at full width and 2 layers in float32, the
      engine's tokens equal single-stream greedy decoding;
   8. the same serving run and breakdown for full-width xLSTM 1.3B (every
@@ -915,8 +918,10 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     prefill must launch each kernel ``per_request[name]`` times, every
     decode step the decode kernel once an attention layer (and any other
     kernel never), each always in its main-path body (``SERVE_BODY``).
-    Then the breakdown of one prefill and one decode step. Returns the
-    launch counts and the counts by body."""
+    The decode steps replay CUDA graphs after one capture, whose eager
+    warm-up step launches too (``decode_replay_check``). Then the
+    breakdown of one prefill and one decode step. Returns the launch
+    counts and the counts by body."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeRequest, ServingEngine
@@ -964,11 +969,13 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     counts = ops.launch_counts()
     by_body = {name: dict(k.launches_by_body)
                for name, k in ops.KERNELS.items()}
+    attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     expected = {name: per_request.get(name, 0) * n_req for name in counts}
-    expected["decode_attention"] = stats["decode_steps"] * sum(
-        cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    expected["decode_attention"] = (stats["decode_steps"]
+                                    + stats["decode_captures"]) * attn
     want_body = {name: {body: expected[name]} if expected[name] else {}
                  for name, body in SERVE_BODY.items()}
+    replay = decode_replay_check(engine, attn, SERVE_BODY["decode_attention"])
     toks = [t for r in reqs for t in r.output]
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params,
@@ -979,8 +986,14 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
           "prompt_len_min": int(lens.min()), "prompt_len_max": int(lens.max()),
           "prompt_tokens": int(lens.sum()), "max_new_tokens": max_new,
           **stats, "launches": counts, "launches_expected": expected,
-          "launches_by_body": by_body,
+          "launches_by_body": by_body, "decode_replay": replay,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if (stats["decode_captures"], stats["decode_replays"]) != (
+            1, stats["decode_steps"]):
+        raise AssertionError(
+            f"{stats['decode_captures']} captures and "
+            f"{stats['decode_replays']} replays of "
+            f"{stats['decode_steps']} decode steps, want 1 and all")
     if counts != expected:
         raise AssertionError(f"launches {counts}, want {expected}")
     for name, want in want_body.items():
@@ -995,6 +1008,39 @@ def phase_serve(cfg, seed: int, lens_range, per_request: dict,
     del engine, params
     torch.cuda.empty_cache()
     return counts, by_body
+
+
+def decode_replay_check(engine, attn: int, body: str) -> dict:
+    """One more decode step of ``engine`` (its own model, parameters and
+    caches: a replay of its captured graphs) under the profiler. The
+    decode kernel's launches that the replay added to its count, read from
+    the graphs' nodes, and its body kernels that the profile names must
+    each be ``attn``, all in ``body``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    graphs = engine.model.graphs
+    captures = graphs.captures
+    token = torch.zeros((engine.lanes, 1), dtype=torch.long, device="cuda")
+    index = torch.as_tensor(engine.positions, device="cuda")
+    before = ops.launches_by_body()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.model.decode_step(engine.params, token, engine.caches, index)
+        torch.cuda.synchronize()
+    counted = ops.launches_since(before).get("decode_attention", {})
+    named: dict = {}
+    for e in prof.events():
+        m = re.search(r"decode_attn_(mma|fma)<", e.name)
+        if m and e.device_type == torch.autograd.DeviceType.CUDA:
+            named[m.group(1)] = named.get(m.group(1), 0) + 1
+    want = {body: attn} if attn else {}
+    rec = {"counted": counted, "profiled": named, "expected": want,
+           "recaptured": graphs.captures != captures,
+           "graph_launches": graphs.chain.launches}
+    if counted != want or named != want or rec["recaptured"]:
+        raise AssertionError(f"a replayed decode step: {rec}")
+    return rec
 
 
 def _host_ms(fn, iters: int) -> float:
@@ -1026,10 +1072,13 @@ def phase_breakdown(model, params, engine, rng, plain_iters: int):
                                   use_kernel=kernel), iters)
     tokens = torch.zeros((engine.lanes, 1), dtype=torch.long, device="cuda")
     positions = torch.full((engine.lanes,), 600, device="cuda")
+    # one model each, so that each captures its step once
+    models = {k: dataclasses.replace(model, decode_kernel=k)
+              for k in (True, False)}
 
     def decode(use_kernel=True):
-        m = dataclasses.replace(model, decode_kernel=use_kernel)
-        logits, _ = m.decode_step(params, tokens, engine.caches, positions)
+        logits, _ = models[use_kernel].decode_step(params, tokens,
+                                                   engine.caches, positions)
         return logits.argmax(dim=-1).cpu()
 
     rec["decode_lanes"] = engine.lanes
@@ -2848,9 +2897,11 @@ def phase_serve_batched(device="cuda", full: bool = True):
     counts, by_body = _launches()
     attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     cuda = torch.device(device).type == "cuda"
+    # each engine's decode steps replay graphs after one eager step
     expected = {"flash_attention": 2 * serve_batched.N_REQ * attn,
-                "decode_attention": attn * (res["serial"]["decode_steps"]
-                                            + res["batched"]["decode_steps"])}
+                "decode_attention": attn * sum(
+                    res[k]["decode_steps"] + res[k]["decode_captures"]
+                    for k in ("serial", "batched"))}
     if not cuda:
         expected = {name: 0 for name in expected}
     keys = ("decode_steps", "decode_tokens", "tokens_per_dispatch",

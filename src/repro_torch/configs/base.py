@@ -126,9 +126,10 @@ class ModelConfig:
     # (possibly heterogeneous) layers. 0 -> auto from family.
     scan_period: int = 0
     remat: str = "block"        # training only; inference ignores it
-    # serving only: each decode step on CUDA tensors replayed as CUDA
-    # graphs (models/decode_graph.py)
-    decode_graph: bool = False
+    # serving only: each decode step on plain CUDA tensors with per-lane
+    # positions replayed as CUDA graphs (models/decode_graph.py); False
+    # runs it eagerly
+    decode_graph: bool = True
 
     def __post_init__(self):
         # dataclasses.asdict() flattens the sub-configs to dicts; accept them

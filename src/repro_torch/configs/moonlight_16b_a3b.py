@@ -35,7 +35,6 @@ CONFIG = ModelConfig(
     mla=MLAConfig(kv_lora_rank=512, qk_nope_head_dim=128,
                   qk_rope_head_dim=64, v_head_dim=128),
     scan_period=27,
-    decode_graph=True,
 )
 
 SMOKE_CONFIG = ModelConfig(
@@ -60,5 +59,4 @@ SMOKE_CONFIG = ModelConfig(
     mla=MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
                   v_head_dim=16),
     scan_period=3,
-    decode_graph=True,
 )

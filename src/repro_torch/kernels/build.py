@@ -17,6 +17,7 @@ import threading
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+CSRC = Path(__file__).resolve().parent / "csrc"
 
 # per thread: the device indices whose primary context bind_context has
 # made (or found) current on the thread
@@ -68,7 +69,8 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 def source_files(source: Path) -> list:
     """``source`` and every header it includes with quotes, directly or
-    through another header, resolved beside the including file."""
+    through another header, resolved beside the including file, else in
+    ``CSRC`` (as ``nvcc -I`` resolves it)."""
     seen, todo = [], [Path(source)]
     while todo:
         path = todo.pop()
@@ -76,9 +78,10 @@ def source_files(source: Path) -> list:
             continue
         seen.append(path)
         for name in _INCLUDE.findall(path.read_text()):
-            header = path.parent / name
-            if header.exists():
-                todo.append(header)
+            for header in (path.parent / name, CSRC / name):
+                if header.exists():
+                    todo.append(header)
+                    break
     return seen
 
 
@@ -94,10 +97,11 @@ def is_stale(out: Path, source: Path) -> bool:
 def build_library(source: Path, name: str) -> Path:
     """Compile ``source`` for sm_90a into ``BUILD_DIR/<name>.so``.
 
-    Skips the build unless ``is_stale``. The library is written under a
-    temporary name and renamed, so a concurrent reader never sees a
-    half-written file. ptxas's report (registers, shared memory, spills)
-    goes to ``BUILD_DIR/<name>.ptxas.txt``.
+    Headers resolve beside ``source``, then in ``CSRC`` (a patched copy
+    elsewhere finds them there). Skips the build unless ``is_stale``. The
+    library is written under a temporary name and renamed, so a concurrent
+    reader never sees a half-written file. ptxas's report (registers,
+    shared memory, spills) goes to ``BUILD_DIR/<name>.ptxas.txt``.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"{name}.so"
@@ -107,7 +111,7 @@ def build_library(source: Path, name: str) -> Path:
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, str(source)]
+           "-I", str(CSRC), "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -124,7 +128,9 @@ class KernelLibrary:
     argument types in ``_bind`` and launch it in ``__call__``, calling
     ``_count(body)`` once for each launch: ``launches_by_body`` counts
     them by the body (the kernel function of the source) that ran,
-    ``launches`` is their sum.
+    ``launches`` is their sum. A captured CUDA graph replays launches
+    without the wrapper: ``graph_launches`` reads them from the graph's
+    nodes, for the replay to add (``kernels/ops.py::count_launches``).
     """
 
     source: Path
@@ -132,6 +138,7 @@ class KernelLibrary:
 
     def __init__(self):
         self._lib = None
+        self._entries = None
         self._lock = threading.Lock()
         self.reset_counts()
 
@@ -143,11 +150,58 @@ class KernelLibrary:
     def reset_counts(self) -> None:
         self.launches_by_body = {}
 
-    def _count(self, body: str) -> None:
+    def _count(self, body: str, n: int = 1) -> None:
+        """Add ``n`` launches of ``body`` (fewer where ``n`` < 0); a body
+        left at none is dropped."""
         # under the lock: worker threads (repro_torch.rt) launch at once
         with self._lock:
-            self.launches_by_body[body] = \
-                self.launches_by_body.get(body, 0) + 1
+            total = self.launches_by_body.get(body, 0) + n
+            if total:
+                self.launches_by_body[body] = total
+            else:
+                self.launches_by_body.pop(body, None)
+
+    def graph_launches(self, graph: int) -> dict:
+        """{body: launches} held by ``graph``, a captured cudaGraph_t
+        (``torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()``): its
+        kernel nodes whose function is one of the library's body kernels
+        (``graph_entries`` in ``csrc/graph_nodes.cuh``), as this library's
+        CUDA runtime reads them (``graph_functions``). Empty where the
+        library is not loaded: it has launched nothing."""
+        lib = self._lib
+        if lib is None:
+            return {}
+        entries = self._graph_entries(lib)
+        n = lib.graph_functions(graph, None, 0)
+        if n < 0:
+            raise RuntimeError(f"{self.name}: reading the graph's nodes "
+                               f"failed: CUDA error {-n}")
+        funcs = (ctypes.c_void_p * n)()
+        lib.graph_functions(graph, funcs, n)
+        counts: dict = {}
+        for func in funcs:
+            body = entries.get(func)
+            if body is not None:
+                counts[body] = counts.get(body, 0) + 1
+        return counts
+
+    def _graph_entries(self, lib) -> dict:
+        """{host address of a body kernel: its body}, bound at first use."""
+        entries = self._entries
+        if entries is None:
+            lib.graph_entries.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_int]
+            lib.graph_entries.restype = ctypes.c_int
+            lib.graph_functions.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                            ctypes.c_int]
+            lib.graph_functions.restype = ctypes.c_int
+            n = lib.graph_entries(None, None, 0)
+            funcs = (ctypes.c_void_p * n)()
+            bodies = (ctypes.c_char_p * n)()
+            lib.graph_entries(funcs, bodies, n)
+            entries = self._entries = {
+                f: b.decode() for f, b in zip(funcs, bodies)}
+        return entries
 
     def build(self):
         with self._lock:

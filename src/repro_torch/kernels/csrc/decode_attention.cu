@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include "graph_nodes.cuh"
 
 namespace {
 
@@ -541,4 +542,28 @@ extern "C" int decode_attention_fwd(
                                  part_ml, B, a, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// every body kernel, for a captured graph's count (graph_nodes.cuh); the
+// merge runs in the same call as either body
+const graph_nodes::GraphEntry kGraphEntries[] = {
+    {reinterpret_cast<const void*>(decode_attn_mma<16>), "mma"},
+    {reinterpret_cast<const void*>(decode_attn_mma<32>), "mma"},
+    {reinterpret_cast<const void*>(decode_attn_mma<64>), "mma"},
+    {reinterpret_cast<const void*>(decode_attn_mma<128>), "mma"},
+    {reinterpret_cast<const void*>(decode_attn_mma<256>), "mma"},
+    {reinterpret_cast<const void*>(decode_attn_fma<16>), "fma"},
+    {reinterpret_cast<const void*>(decode_attn_fma<32>), "fma"},
+    {reinterpret_cast<const void*>(decode_attn_fma<64>), "fma"},
+    {reinterpret_cast<const void*>(decode_attn_fma<128>), "fma"},
+    {reinterpret_cast<const void*>(decode_attn_fma<256>), "fma"},
+};
+
+extern "C" int graph_entries(const void** funcs, const char** bodies,
+                             int max) {
+  return graph_nodes::entries(kGraphEntries, funcs, bodies, max);
+}
+
+extern "C" int graph_functions(void* graph, const void** funcs, int max) {
+  return graph_nodes::functions(graph, funcs, max);
 }

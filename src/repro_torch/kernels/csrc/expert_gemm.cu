@@ -79,6 +79,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "graph_nodes.cuh"
 
 namespace {
 
@@ -635,4 +636,38 @@ extern "C" int expert_gemm_fwd(const void* x, const void* w, void* out,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// every body kernel, for a captured graph's count (graph_nodes.cuh): the
+// wgmma body at each row chunk, and at 256-column tiles where
+// wg::launch_width takes them
+const graph_nodes::GraphEntry kGraphEntries[] = {
+    {reinterpret_cast<const void*>(expert_gemm_f32), "fma"},
+    {reinterpret_cast<const void*>(expert_gemm_bf16), "mma_sync"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<8, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<16, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<32, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<64, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<80, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<96, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<128, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<160, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<192, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<256, 1>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<8, 2>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<16, 2>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<32, 2>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<64, 2>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<80, 2>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<96, 2>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::expert_gemm_wgmma<128, 2>), "wgmma"},
+};
+
+extern "C" int graph_entries(const void** funcs, const char** bodies,
+                             int max) {
+  return graph_nodes::entries(kGraphEntries, funcs, bodies, max);
+}
+
+extern "C" int graph_functions(void* graph, const void** funcs, int max) {
+  return graph_nodes::functions(graph, funcs, max);
 }

@@ -76,6 +76,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "graph_nodes.cuh"
 
 namespace {
 
@@ -845,4 +846,29 @@ extern "C" int flash_attention_fwd(
     return dispatch_hd<bf16>(hd, q, k, v, o, B, S, Tk, Hq, Hkv, st, scale,
                              causal, window, softcap, s);
   return cudaErrorInvalidValue;
+}
+
+// every body kernel, for a captured graph's count (graph_nodes.cuh)
+const graph_nodes::GraphEntry kGraphEntries[] = {
+    {reinterpret_cast<const void*>(flash_fwd_f32<16>), "fma"},
+    {reinterpret_cast<const void*>(flash_fwd_f32<32>), "fma"},
+    {reinterpret_cast<const void*>(flash_fwd_f32<64>), "fma"},
+    {reinterpret_cast<const void*>(flash_fwd_f32<128>), "fma"},
+    {reinterpret_cast<const void*>(flash_fwd_f32<256>), "fma"},
+    {reinterpret_cast<const void*>(flash_fwd_bf16<16>), "mma_sync"},
+    {reinterpret_cast<const void*>(flash_fwd_bf16<32>), "mma_sync"},
+    {reinterpret_cast<const void*>(flash_fwd_bf16<64>), "mma_sync"},
+    {reinterpret_cast<const void*>(flash_fwd_bf16<128>), "mma_sync"},
+    {reinterpret_cast<const void*>(flash_fwd_bf16<256>), "mma_sync"},
+    {reinterpret_cast<const void*>(wg::flash_fwd_wgmma<64>), "wgmma"},
+    {reinterpret_cast<const void*>(wg::flash_fwd_wgmma<128>), "wgmma"},
+};
+
+extern "C" int graph_entries(const void** funcs, const char** bodies,
+                             int max) {
+  return graph_nodes::entries(kGraphEntries, funcs, bodies, max);
+}
+
+extern "C" int graph_functions(void* graph, const void** funcs, int max) {
+  return graph_nodes::functions(graph, funcs, max);
 }

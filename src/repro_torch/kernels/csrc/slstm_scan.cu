@@ -68,6 +68,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "graph_nodes.cuh"
 
 namespace {
 
@@ -361,4 +362,23 @@ extern "C" int slstm_scan_fwd(const void* pre, const float* r,
     return dispatch<bf16>(pre, r, c0, n0, m0, h0, hs, cT, nT, mT, hT, xchg, B,
                           S, H, dh, info, st);
   return cudaErrorInvalidValue;
+}
+
+// every body kernel, for a captured graph's count (graph_nodes.cuh)
+const graph_nodes::GraphEntry kGraphEntries[] = {
+    {reinterpret_cast<const void*>(slstm_regs<float, 1>), "regs"},
+    {reinterpret_cast<const void*>(slstm_regs<float, 2>), "regs"},
+    {reinterpret_cast<const void*>(slstm_regs<float, 4>), "regs"},
+    {reinterpret_cast<const void*>(slstm_regs<bf16, 1>), "regs"},
+    {reinterpret_cast<const void*>(slstm_regs<bf16, 2>), "regs"},
+    {reinterpret_cast<const void*>(slstm_regs<bf16, 4>), "regs"},
+};
+
+extern "C" int graph_entries(const void** funcs, const char** bodies,
+                             int max) {
+  return graph_nodes::entries(kGraphEntries, funcs, bodies, max);
+}
+
+extern "C" int graph_functions(void* graph, const void** funcs, int max) {
+  return graph_nodes::functions(graph, funcs, max);
 }

@@ -63,6 +63,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "graph_nodes.cuh"
 
 namespace {
 
@@ -320,4 +321,49 @@ extern "C" int ssm_scan_fwd(const void* u, const void* dt, const float* A,
                                  N, st);
   return dispatch<float, float>(u, dt, A, Bm, Cm, D, h0, y, h_last, Bb, S, d,
                                 N, st);
+}
+
+// every body kernel, for a captured graph's count (graph_nodes.cuh)
+const graph_nodes::GraphEntry kGraphEntries[] = {
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 1, bf16, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 2, bf16, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 4, bf16, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 8, bf16, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 1, bf16, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 2, bf16, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 4, bf16, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 8, bf16, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 1, float, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 2, float, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 4, float, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 8, float, bf16>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 1, float, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 2, float, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 4, float, float>),
+     "ring"},
+    {reinterpret_cast<const void*>(ssm_scan_kernel<8, 8, float, float>),
+     "ring"},
+};
+
+extern "C" int graph_entries(const void** funcs, const char** bodies,
+                             int max) {
+  return graph_nodes::entries(kGraphEntries, funcs, bodies, max);
+}
+
+extern "C" int graph_functions(void* graph, const void** funcs, int max) {
+  return graph_nodes::functions(graph, funcs, max);
 }

@@ -59,6 +59,41 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+def launches_by_body() -> dict:
+    """{kernel name: {body: launches so far}}."""
+    return {name: dict(k.launches_by_body) for name, k in KERNELS.items()}
+
+
+def launches_since(before: dict) -> dict:
+    """{kernel name: {body: launches}} counted since ``before`` (a
+    ``launches_by_body()``), kernels and bodies with none left out."""
+    out = {}
+    for name, by_body in launches_by_body().items():
+        diff = {body: n - before[name].get(body, 0)
+                for body, n in by_body.items()
+                if n != before[name].get(body, 0)}
+        if diff:
+            out[name] = diff
+    return out
+
+
+def graph_launches(graph: int) -> dict:
+    """{kernel name: {body: launches}} that the captured CUDA graph
+    ``graph`` (a cudaGraph_t) holds, read from its kernel nodes; kernels
+    it does not launch are left out."""
+    found = {name: k.graph_launches(graph) for name, k in KERNELS.items()}
+    return {name: by_body for name, by_body in found.items() if by_body}
+
+
+def count_launches(launches: dict, times: int = 1) -> None:
+    """Add ``launches`` ({kernel name: {body: launches}}) ``times`` times
+    to the kernels' counts: a graph's replay launches what it holds
+    without the wrappers that count (``times`` -1 takes them back)."""
+    for name, by_body in launches.items():
+        for body, n in by_body.items():
+            KERNELS[name]._count(body, n * times)
+
+
 def _forward_only(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

@@ -1,10 +1,12 @@
 """A serving decode step replayed as CUDA graphs, split at the model's spans.
 
-A configuration with ``decode_graph`` serves its decode steps this way on
-CUDA tensors with per-lane positions (``Model.decode_step``). The first
-step with a parameter tree, a cache tree and a batch captures the step's
-own eager code (``Model.forward``) as a chain of graphs that end where the
-spans of ``SPLIT`` begin and end: one graph for each layer's mixer
+Every decode step on plain CUDA tensors with a position for each lane
+(``replayed``) is served this way (``Model.decode_step``), unless the
+configuration turns it off (``decode_graph``); a DTensor's mesh path and
+CPU tensors stay eager. The first step with a parameter tree, a cache tree
+and a batch captures the step's own eager code (``Model.forward``), in the
+span ``model.capture``, as a chain of graphs that end where the spans of
+``SPLIT`` begin and end: one graph for each layer's mixer
 (``model.<kind>``), one for each FFN or MoE block (``model.ffn``,
 ``model.moe``), one for the head (``model.head``), and one for the work
 between them (the embedding, the norms and residual adds). Every later step
@@ -16,12 +18,16 @@ device work is the eager step's; the host launches one graph where the
 eager step launches some thirty kernels, so a step no longer waits on the
 host's pace.
 
+A graph replays kernels without their wrappers, which count launches
+(``ops.KERNELS``). So each graph is kept after its capture and its kernel
+nodes are read (``ops.graph_launches``): that count must equal what the
+wrappers counted while the step was captured, which launched nothing and is
+taken back, and each replay adds it to the kernels' counts.
+
 The graphs read the parameters and write the caches where they lie: the
 trees must be written in place (the engine's are), and a step with another
-tree or batch captures anew. A graph replays kernels without their
-wrappers, which count launches (``ops.KERNELS``), so a step that launches a
-counted kernel is refused; so is a host read inside the step, which a
-capture cannot hold. The graphs share one memory pool and replay in the
+tree or batch captures anew. A host read inside the step cannot be
+captured, and raises. The graphs share one memory pool and replay in the
 order they were captured, as that requires. The head ends the step: no
 work follows it in ``Model.forward``.
 """
@@ -37,10 +43,23 @@ SPLIT = frozenset({"model.attn", "model.mla", "model.ffn", "model.moe",
 LAST = "model.head"
 
 
+class Graphs:
+    """A model's captured decode step (``chain``, None before the first),
+    and the captures and replays so far: a serving run captures once, in
+    its warm-up, and replays every later step."""
+
+    def __init__(self):
+        self.chain = None
+        self.captures = 0
+        self.replays = 0
+
+
 class DecodeGraphs:
     """The captured chain of one model, parameter tree, cache tree and
     batch; called with a step's tokens [B, 1] and positions [B], it
-    replays the chain and returns the logits [B, padded_vocab]."""
+    replays the chain and returns the logits [B, padded_vocab].
+    ``launches`` is what one replay launches of ``ops.KERNELS``, read from
+    the graphs' nodes ({kernel name: {body: launches}})."""
 
     split = SPLIT
 
@@ -53,7 +72,6 @@ class DecodeGraphs:
         torch.cuda.synchronize()
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
-        counts = ops.launch_counts()
 
         def forward():
             return model.forward(params, self.token, caches=caches,
@@ -61,11 +79,7 @@ class DecodeGraphs:
                                  use_kernel=model.decode_kernel)[0]
         with torch.cuda.stream(stream):
             forward()          # the warm-up: writes what the replay rewrites
-            if ops.launch_counts() != counts:
-                raise ValueError(
-                    f"{model.cfg.name}: a decode step that launches a "
-                    "counted kernel cannot be replayed as graphs (its "
-                    "launches would go uncounted)")
+            before = ops.launches_by_body()
             self._open(None)
             spans._capture = self
             try:
@@ -74,8 +88,25 @@ class DecodeGraphs:
                 spans._capture = None
                 if self._graph is not None:
                     self._graph.capture_end()
+                # the wrappers counted the capture, which launched nothing
+                counted = ops.launches_since(before)
+                ops.count_launches(counted, -1)
         torch.cuda.current_stream().wait_stream(stream)
         self.logits = logits[:, -1]
+        self.launches = {}
+        for _, graph in self.graphs:
+            for name, by_body in ops.graph_launches(
+                    graph.raw_cuda_graph()).items():
+                into = self.launches.setdefault(name, {})
+                for body, n in by_body.items():
+                    into[body] = into.get(body, 0) + n
+        if self.launches != counted:
+            raise RuntimeError(
+                f"{model.cfg.name}: the captured decode step's kernel nodes "
+                f"hold {self.launches} launches, its wrappers counted "
+                f"{counted}")
+        for _, graph in self.graphs:
+            graph.instantiate()
 
     def fits(self, params, token, caches) -> bool:
         return (params is self.params and caches is self.caches
@@ -90,13 +121,14 @@ class DecodeGraphs:
             else:
                 with spans.span(name):
                     graph.replay()
+        ops.count_launches(self.launches)
         # the caller's own tensor, as an eager step's: the next replay
         # rewrites the captured one
         return self.logits.clone()
 
     # the capture's edges, entered through ``spans.span``
     def _open(self, name):
-        self._graph = torch.cuda.CUDAGraph()
+        self._graph = torch.cuda.CUDAGraph(keep_graph=True)
         self._graph.capture_begin(pool=self._pool)
         self.graphs.append((name, self._graph))
 
@@ -129,12 +161,25 @@ class _Region:
         return False
 
 
+def replayed(token, cache_index) -> bool:
+    """Whether a decode step on these inputs replays graphs: plain CUDA
+    tensors (a DTensor, on a mesh, stays eager) with a position for each
+    lane."""
+    return (type(token) is torch.Tensor and token.is_cuda
+            and type(cache_index) is torch.Tensor and cache_index.dim() == 1)
+
+
 def decode(model, params, token, caches, cache_index):
     """The logits [B, padded_vocab] of a decode step, replayed from the
-    model's captured chain (captured first where none fits)."""
-    chain = model.graphs.get("decode")
+    model's captured chain (captured first where none fits, in the span
+    ``model.capture``)."""
+    graphs = model.graphs
+    chain = graphs.chain
     if chain is None or not chain.fits(params, token, caches):
-        model.graphs.pop("decode", None)
-        chain = model.graphs["decode"] = DecodeGraphs(
-            model, params, token, caches, cache_index)
+        chain = graphs.chain = None      # the old chain's pool goes first
+        with spans.span("model.capture"):
+            chain = graphs.chain = DecodeGraphs(model, params, token, caches,
+                                                cache_index)
+        graphs.captures += 1
+    graphs.replays += 1
     return chain(token, cache_index)

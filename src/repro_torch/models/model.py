@@ -41,12 +41,13 @@ class Model:
     It is the model's and not a ``decode_step`` argument so that the
     engine's call keeps the signature (params, token, caches,
     cache_index). ``graphs`` holds the decode step captured as CUDA graphs
-    where ``cfg.decode_graph`` asks for them (``decode_graph``)."""
+    and counts its captures and replays (``decode_graph``)."""
 
     cfg: ModelConfig
     decode_kernel: bool = False
-    graphs: Dict[str, Any] = field(default_factory=dict, init=False,
-                                   compare=False, hash=False, repr=False)
+    graphs: decode_graph.Graphs = field(
+        default_factory=decode_graph.Graphs, init=False, compare=False,
+        hash=False, repr=False)
 
     def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
         """Random parameters from ``seed`` on ``device`` (not the
@@ -143,12 +144,12 @@ class Model:
         ``decode_kernel`` each attention layer's decode attention goes
         through ``ops.decode_attention``; everything else takes the plain
         paths, so the MoE expert products of a decode step stay
-        ``torch.einsum``. With ``cfg.decode_graph``, on CUDA tensors with
-        per-lane positions, the step is replayed as CUDA graphs
-        (``decode_graph``). Runs in the span ``model.decode``."""
+        ``torch.einsum``. On plain CUDA tensors with per-lane positions the
+        step is replayed as CUDA graphs (``decode_graph``), unless
+        ``cfg.decode_graph`` is off. Runs in the span ``model.decode``."""
         with span("model.decode"):
-            if (self.cfg.decode_graph and token.is_cuda
-                    and torch.is_tensor(cache_index)):
+            if self.cfg.decode_graph and decode_graph.replayed(token,
+                                                               cache_index):
                 return decode_graph.decode(self, params, token, caches,
                                            cache_index), caches
             logits, caches = self.forward(params, token, caches=caches,

@@ -31,6 +31,8 @@ SPANS = (
     "engine.sample",     # an argmax, its readback and the token bookkeeping
     # models/model.py::Model: the model's serving calls, and its head
     "model.prefill", "model.decode", "model.head",
+    # models/decode_graph.py::decode: a decode step captured as graphs
+    "model.capture",
     # models/transformer.py::block_apply: a layer's mixer, by layer kind
     "model.attn", "model.mla", "model.ssm", "model.mlstm", "model.slstm",
     # models/mla.py::mla_apply: the projections of q and the latent, its

@@ -18,8 +18,9 @@ goes through ``kernels.ops.flash_attention``, the sLSTM recurrence through
 ``kernels.ops.decode_attention``, which reads every lane's cache in place up
 to the lane's position: the hand-written kernels on CUDA tensors, their
 plain versions on CPU tensors. The rest of a decode step takes the plain
-paths. ``use_kernel=False`` runs the model's plain paths, as the reference
-engine does.
+paths. On the card the first decode step is captured as CUDA graphs and
+every step replays them (``models/decode_graph.py``). ``use_kernel=False``
+runs the model's plain paths, as the reference engine does.
 
 Each step runs in the spans ``engine.step``, ``engine.admit``,
 ``engine.prefill``, ``engine.scatter``, ``engine.decode`` and
@@ -177,8 +178,12 @@ class ServingEngine:
             return len(active)
 
     def run(self, requests: Sequence[ServeRequest]) -> Dict:
-        """Serve requests to completion; returns summary stats."""
+        """Serve requests to completion; returns summary stats, among them
+        the kernels' launches and the decode steps captured and replayed
+        as CUDA graphs (``decode_captures``, ``decode_replays``)."""
         launches0 = ops.launch_counts()
+        graphs = self.model.graphs
+        captures0, replays0 = graphs.captures, graphs.replays
         t0 = time.time()
         for r in requests:
             self.submit(r)
@@ -197,5 +202,7 @@ class ServingEngine:
             "mean_latency_s": float(np.mean(lat)) if lat else 0.0,
             "p99_latency_s": float(np.percentile(lat, 99)) if lat else 0.0,
             "throughput_tok_s": self.decode_tokens / max(wall, 1e-9),
+            "decode_captures": graphs.captures - captures0,
+            "decode_replays": graphs.replays - replays0,
             **launches,
         }

@@ -150,9 +150,12 @@ def test_one_launch_a_layer_a_decode_step_through_the_engine():
                          max_new_tokens=5) for n in (7, 30, 12, 64, 3)]
     engine = ServingEngine(cfg, params, lanes=3, max_len=128)
     decode_kernel.reset_counts()
-    engine.run(reqs)
+    stats = engine.run(reqs)
     torch.cuda.synchronize()
     attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
-    assert decode_kernel.launches_by_body == {"mma": engine.steps * attn}
+    # the steps are replayed as CUDA graphs, captured after one eager step
+    assert stats["decode_captures"] == 1
+    assert decode_kernel.launches_by_body == {
+        "mma": (engine.steps + 1) * attn}
     assert all(len(r.output) == 5 and all(0 <= t < cfg.vocab_size
                                           for t in r.output) for r in reqs)

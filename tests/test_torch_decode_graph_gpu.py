@@ -1,6 +1,8 @@
 """A serving decode step replayed as CUDA graphs (``models/decode_graph.py``)
 against the same step run eagerly, on the card: Moonlight's smoke config
-served through the engine, the profiled replay's spans, and the refusals.
+served through the engine, phi4's and Gemma's with the decode kernel in
+the graphs, the profiled replay's spans and kernels, and a launch count
+read from the graphs' nodes against the wrappers' and the profiler's.
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_decode_graph_gpu.py
 
@@ -8,6 +10,8 @@ Without a CUDA card every case skips.
 """
 import dataclasses
 import importlib.util
+import json
+import re
 import sys
 from pathlib import Path
 
@@ -16,11 +20,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs.spans import span  # noqa: E402
 from repro_torch.serving import ServeRequest, ServingEngine  # noqa: E402
 
 _PATH = (Path(__file__).resolve().parents[1] / "perfbench" / "reference"
          / "moonlight.py")
+# the decode kernel's body functions, by body (csrc/decode_attention.cu)
+_BODY_KERNEL = re.compile(r"decode_attn_(mma|fma)<")
 
 
 def _reference():
@@ -42,6 +50,10 @@ def _smoke(dtype, graph=True):
                                dtype=dtype, decode_graph=graph)
 
 
+def _attn_layers(cfg):
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
 class _Logits:
     """The engine's model, keeping every decode step's logits."""
 
@@ -58,6 +70,8 @@ class _Logits:
 
 
 def _serve(cfg, params):
+    """(tokens, the decode steps' logits, the model's spy, the engine's
+    summary, the decode kernel's launches by body in the run)."""
     eng = ServingEngine(cfg, params, lanes=4, max_len=128, use_kernel=True)
     eng.model = spy = _Logits(eng.model)
     g = torch.Generator().manual_seed(5)
@@ -65,8 +79,12 @@ def _serve(cfg, params):
                                               generator=g).tolist(),
                          max_new_tokens=m)
             for n, m in ((37, 9), (50, 4), (71, 12), (29, 7), (44, 6))]
-    eng.run(reqs)
-    return [r.output for r in reqs], torch.stack(spy.steps), spy
+    before = ops.launches_by_body()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    launched = ops.launches_since(before).get("decode_attention", {})
+    return ([r.output for r in reqs], torch.stack(spy.steps), spy, stats,
+            launched)
 
 
 @pytest.mark.gpu
@@ -77,11 +95,107 @@ def test_replayed_decode_equals_the_eager_step(dtype):
     _card()
     ref = _reference()
     params = ref.make_params(dataclasses.asdict(_smoke(dtype)), 11, "cuda")
-    got_tokens, got, spy = _serve(_smoke(dtype), params)
-    want_tokens, want, _ = _serve(_smoke(dtype, graph=False), params)
-    assert spy._model.graphs["decode"].graphs
+    got_tokens, got, spy, stats, _ = _serve(_smoke(dtype), params)
+    want_tokens, want, _, eager, _ = _serve(_smoke(dtype, graph=False),
+                                            params)
+    assert spy._model.graphs.chain.graphs
+    assert stats["decode_captures"] == 1
+    assert stats["decode_replays"] == stats["decode_steps"]
+    assert eager["decode_captures"] == eager["decode_replays"] == 0
     assert got_tokens == want_tokens
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype,body", [
+    ("phi4_mini_3_8b", "bfloat16", "mma"), ("gemma_2b", "float32", "fma")])
+def test_replay_with_the_decode_kernel_equals_the_eager_step(arch, dtype,
+                                                            body):
+    """The decode kernel inside the graphs: tokens and logits bit-equal to
+    the eager step; its launches one a layer a step in the dtype's body,
+    the capture's warm-up step among them."""
+    _card()
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    params = build_model(cfg).init(7, device="cuda")
+    got_tokens, got, _, stats, launched = _serve(cfg, params)
+    want_tokens, want, _, eager, eager_launched = _serve(
+        dataclasses.replace(cfg, decode_graph=False), params)
+    assert got_tokens == want_tokens
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    attn = _attn_layers(cfg)
+    assert stats["decode_captures"] == 1
+    assert stats["decode_replays"] == stats["decode_steps"]
+    assert eager_launched == {body: eager["decode_steps"] * attn}
+    assert launched == {body: (stats["decode_steps"] + 1) * attn}
+
+
+def _trace(prof, tmp_path):
+    """(device kernels [(name, launch time)], host ranges [(name, start,
+    end)]) of a profile, each kernel at the time of the host call that
+    launched it (``cudaGraphLaunch`` for a replayed one)."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: float(e["ts"]) for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in (e.get("args") or {})}
+    kernels = [(e["name"], launch.get(e["args"].get("correlation")))
+               for e in events if e.get("cat") == "kernel"]
+    ranges = [(e["name"], float(e["ts"]), float(e["ts"]) + e["dur"])
+              for e in events if e.get("cat") == "user_annotation"]
+    return kernels, ranges
+
+
+def _inside(t, ranges, name):
+    return t is not None and any(n == name and a <= t <= b
+                                 for n, a, b in ranges)
+
+
+@pytest.mark.gpu
+def test_a_replays_decode_launches_are_read_from_its_graphs(tmp_path):
+    """phi4's smoke model in bf16: the decode kernel's launches a replay
+    adds, read from the graphs' kernel nodes, are one a layer, as many as
+    the eager step's wrapper counts and as the body kernels a profiled
+    replay launches inside ``engine.decode`` and ``model.attn``."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(get_smoke_config("phi4_mini_3_8b"),
+                              dtype="bfloat16")
+    model = build_model(cfg, decode_kernel=True)
+    params = model.init(3, device="cuda")
+    attn = _attn_layers(cfg)
+    token = torch.tensor([[5], [7]], device="cuda")
+    index = torch.tensor([3, 9], device="cuda")
+    caches = model.init_caches(2, 32, "cuda")
+    model.decode_step(params, token, caches, index)
+    chain = model.graphs.chain
+    launches = {"decode_attention": {"mma": attn}}
+    assert chain.launches == launches
+
+    def counted(step):
+        before = ops.launches_by_body()
+        step()
+        torch.cuda.synchronize()
+        return ops.launches_since(before)
+
+    eager = build_model(dataclasses.replace(cfg, decode_graph=False),
+                        decode_kernel=True)
+    assert counted(lambda: eager.decode_step(
+        params, token, model.init_caches(2, 32, "cuda"), index)) == launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with span("engine.decode"):
+            replay = counted(lambda: model.decode_step(params, token, caches,
+                                                       index))
+    assert model.graphs.chain is chain and model.graphs.captures == 1
+    assert replay == launches
+    kernels, ranges = _trace(prof, tmp_path)
+    bodies = [t for name, t in kernels if _BODY_KERNEL.search(name)]
+    assert len(bodies) == attn
+    assert all(_inside(t, ranges, "engine.decode")
+               and _inside(t, ranges, "model.attn") for t in bodies)
 
 
 @pytest.mark.gpu
@@ -107,7 +221,8 @@ def test_a_profiled_replay_records_the_layer_spans_with_their_kernels():
     # timeline)
     names = [e.name for e in prof.events() if e.device_type == cpu]
     for name, n in (("model.decode", 1), ("model.mla", 3), ("model.ffn", 1),
-                    ("model.moe", 2), ("model.head", 1)):
+                    ("model.moe", 2), ("model.head", 1),
+                    ("model.capture", 0)):
         assert names.count(name) == n, (name, names.count(name))
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -125,25 +240,11 @@ def test_a_new_cache_tree_is_captured_anew():
     index = torch.tensor([3, 9], device="cuda")
     first = model.init_caches(2, 32, "cuda")
     model.decode_step(params, token, first, index)
-    chain = model.graphs["decode"]
+    chain = model.graphs.chain
     second = model.init_caches(2, 32, "cuda")
     got, _ = model.decode_step(params, token, second, index)
-    assert model.graphs["decode"] is not chain
+    assert model.graphs.chain is not chain
+    assert (model.graphs.captures, model.graphs.replays) == (2, 2)
     want, _ = build_model(dataclasses.replace(cfg, decode_graph=False)) \
         .decode_step(params, token, model.init_caches(2, 32, "cuda"), index)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
-
-
-@pytest.mark.gpu
-def test_a_step_with_a_counted_kernel_is_refused():
-    """phi4's decode attention goes through the decode kernel, whose
-    launches a replay would not count."""
-    _card()
-    cfg = dataclasses.replace(get_smoke_config("phi4_mini_3_8b"),
-                              decode_graph=True)
-    model = build_model(cfg, decode_kernel=True)
-    params = model.init(0, "cuda")
-    caches = model.init_caches(2, 32, "cuda")
-    with pytest.raises(ValueError, match="counted kernel"):
-        model.decode_step(params, torch.tensor([[5], [7]], device="cuda"),
-                          caches, torch.tensor([3, 9], device="cuda"))

@@ -313,7 +313,7 @@ def test_decode_graph_splits_at_the_layer_spans():
     assert edges.edges == [(e, n) for n in names for e in ("enter", "exit")]
     token, index = torch.tensor([[5], [7]]), torch.tensor([4, 10])
     got, _ = model.decode_step(params, token, caches, index)
-    assert not model.graphs
+    assert model.graphs.chain is None and model.graphs.captures == 0
     want, _ = build_model(dataclasses.replace(cfg, decode_graph=False)) \
         .decode_step(params, token, caches, index)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
